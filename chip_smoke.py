@@ -6,7 +6,11 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device   the card must be there; prints nvidia-smi's name and power limit.
-2. build    builds the flash-attention kernels from trainer/csrc with nvcc.
+2. build    builds the flash-attention kernels from trainer/csrc with nvcc;
+            prints ptxas's register/spill report and, per library, the
+            HGMMA (wgmma) and UTMALDG (TMA load) instructions in its SASS
+            (cuobjdump). A kernel of the "wgmma+tma" design (kernels.DESIGN)
+            with none of either fails the run.
 3. kernels  holds each kernel against its plain PyTorch version on the card
             at the flagship attention shape [8, 2048, 12, 128] bf16 causal
             and at [2, 1000, 4, 64] bf16, causal and not; times each at the
@@ -169,10 +173,16 @@ def main() -> int:
 
     # 2. build
     k = kernels.load()
-    log(f"build: {k.build_seconds:.1f} s for {len(kernels.SOURCES)} sources")
+    sass = kernels.sass_counts(k.libraries)
+    log(f"build: {k.build_seconds:.1f} s for {len(kernels.SOURCES)} sources; SASS "
+        + "; ".join(f"{src} ({kernels.DESIGN[src]}) HGMMA {n['HGMMA']} UTMALDG {n['UTMALDG']}"
+                    for src, n in sass.items()))
     for line in k.log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  ptxas " + line.strip())
+    for src, n in sass.items():
+        if kernels.DESIGN[src] == "wgmma+tma" and not (n["HGMMA"] and n["UTMALDG"]):
+            raise AssertionError(f"{src} is a wgmma+tma kernel but its SASS has {n}")
 
     # 3. kernels
     flagship = (8, 2048, 12, 128)
@@ -250,8 +260,9 @@ def main() -> int:
             + (" (warm-up)" if i == 0 else ""))
         data = next(it)
     # bf16 flash vs plain attention through 12 residual layers: the two
-    # paths differ by bf16 rounding of p and of the attention output; the
-    # measured gap is under 1e-5 at a loss near ln(32768) = 10.4.
+    # paths differ by bf16 rounding of p and of the attention output. On an
+    # H100 this batch's gap reads 7.6e-5 at a loss near ln(32768) = 10.4;
+    # `bench.loss_gaps` shows how far other batches spread.
     if abs(losses[0] - xla_loss) > 1e-4:
         raise AssertionError(f"step-0 loss {losses[0]} vs plain-attention loss {xla_loss}")
     step_ms = sum(times) / len(times)
@@ -280,6 +291,7 @@ def main() -> int:
         rows.append({
             "name": name,
             "route": "cuda",
+            "design": kernels.DESIGN[sources[name]],
             "source": f"training_operator_tpu_torch/trainer/csrc/{sources[name]}",
             "replaces": replaces[name],
             "launches": flash.launches[name],

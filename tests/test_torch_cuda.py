@@ -31,7 +31,10 @@ def _inputs(shape, seed):
             for _ in range(4)]
 
 
-@pytest.mark.parametrize("shape", [(2, 256, 4, 128), (1, 333, 2, 64)])
+# (1, 129, 2, 128): one row past a 128-row tile; (2, 384, 3, 128): whole
+# tiles; (1, 200, 2, 64) and (1, 333, 2, 64): ragged D=64 tiles.
+@pytest.mark.parametrize("shape", [(2, 256, 4, 128), (1, 333, 2, 64), (1, 129, 2, 128),
+                                   (2, 384, 3, 128), (1, 200, 2, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernels_match_plain(card, shape, causal):
     """Tolerances as in chip_smoke.py: out 1e-2 + 1e-2*|ref|, lse 1e-3,

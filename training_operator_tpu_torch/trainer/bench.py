@@ -297,24 +297,116 @@ def bench_attention(batch: int = 8, seq: int = 2048, heads: int = 12,
     return result
 
 
-def main() -> None:
+# (batch, seq, heads, head_dim, causal) of `attention_sweep`: the flagship
+# attention shape with and without the mask, and a long sequence where each
+# block's fixed costs weigh least.
+SWEEP_SHAPES = ((8, 2048, 12, 128, True), (8, 2048, 12, 128, False),
+                (2, 8192, 12, 128, True), (2, 8192, 12, 128, False))
+
+
+def attention_sweep(shapes=SWEEP_SHAPES, iters: int = 20, device=None) -> list:
+    """The forward and dk/dv kernels' ms and TFLOP/s (over the work
+    `attention_work` counts) at each shape, beside SDPA's forward on the
+    same inputs."""
+    from training_operator_tpu_torch.trainer import flash
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("attention_sweep measures the card; no CUDA device given")
+    rows = []
+    for b, s, h, d, causal in shapes:
+        g = torch.Generator(device=device).manual_seed(0)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=device,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        out, lse = flash.flash_fwd(q, k, v, causal)
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        work = attention_work(b, s, h, d, causal)
+        times = {
+            "flash_fwd": cuda_time_ms(lambda: flash.flash_fwd(q, k, v, causal), iters=iters),
+            "sdpa_fwd": cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), iters=iters),
+            "flash_bwd_dkv": cuda_time_ms(
+                lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal), iters=iters),
+        }
+        flops = {"flash_fwd": work["flash_fwd"]["flops"], "sdpa_fwd": work["flash_fwd"]["flops"],
+                 "flash_bwd_dkv": work["flash_bwd_dkv"]["flops"]}
+        rows.append({"shape": [b, s, h, d], "causal": causal,
+                     **{f"{n}_ms": t for n, t in times.items()},
+                     **{f"{n}_tflops": flops[n] / t / 1e9 for n, t in times.items()}})
+        del q, k, v, do, out, lse, delta, qt, kt, vt
+    return rows
+
+
+def loss_gaps(seeds=(0, 1), batches: int = 3, device=None) -> list:
+    """Flagship forward loss through the flash kernels minus the loss
+    through the plain attention path, on the same params and batch, for
+    `batches` synthetic batches of each seed (params and data from the
+    seed). `chip_smoke.py` holds seed 0's first batch to 1e-4; this shows
+    how far other batches spread."""
+    import dataclasses
+
+    from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset
+    from training_operator_tpu_torch.trainer.model import loss_fn
+    from training_operator_tpu_torch.trainer.train import init_train_state, make_optimizer
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("loss_gaps measures the card; no CUDA device given")
+    config, batch, seq = flagship_config()
+    plain = dataclasses.replace(config, attn_impl="xla")
+    gaps = []
+    for seed in seeds:
+        state = init_train_state(config, make_optimizer(warmup_steps=1, total_steps=100),
+                                 generator=torch.Generator(device=device).manual_seed(seed),
+                                 device=device)
+        data = TokenDataset.synthetic(config.vocab_size, seq, num_rows=batch * batches,
+                                      seed=seed)
+        for example in DataLoader(data, batch_size=batch, shuffle=True, seed=0,
+                                  device=device).epoch(0):
+            with torch.no_grad():
+                gaps.append(loss_fn(state.model, example, config).item()
+                            - loss_fn(state.model, example, plain).item())
+        del state
+    return gaps
+
+
+def main(argv=None) -> None:
     """`python -m training_operator_tpu_torch.trainer.bench`: the flagship
     train step, its profile and the three kernels at the flagship attention
-    shape, on the card; one JSON object on stdout."""
+    shape, on the card; one JSON object on stdout. With `--attention`, only
+    the kernels: `bench_attention` at the flagship shape and
+    `attention_sweep`; with `--loss-gap`, only `loss_gaps`."""
+    import argparse
     import json
     import subprocess
 
+    parser = argparse.ArgumentParser(prog="python -m training_operator_tpu_torch.trainer.bench")
+    parser.add_argument("--attention", action="store_true",
+                        help="time the flash kernels only (bench_attention, attention_sweep)")
+    parser.add_argument("--loss-gap", action="store_true",
+                        help="flash vs plain-attention forward loss over six batches only")
+    args = parser.parse_args(argv)
     config, batch, seq = flagship_config()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    out = {
-        "card": card,
-        "train_step": bench_train_step(config, batch, seq, steps=5, warmup=1),
-        "profile": profile_train_step(config, batch, seq),
-        "attention": bench_attention(batch, seq, config.n_heads, config.head_dim),
-    }
+    if args.loss_gap:
+        out = {"card": card, "loss_gaps": loss_gaps()}
+    elif args.attention:
+        out = {
+            "card": card,
+            "attention": bench_attention(batch, seq, config.n_heads, config.head_dim, iters=20),
+            "sweep": attention_sweep(),
+        }
+    else:
+        out = {
+            "card": card,
+            "train_step": bench_train_step(config, batch, seq, steps=5, warmup=1),
+            "profile": profile_train_step(config, batch, seq),
+            "attention": bench_attention(batch, seq, config.n_heads, config.head_dim),
+        }
     print(json.dumps(out))
 
 

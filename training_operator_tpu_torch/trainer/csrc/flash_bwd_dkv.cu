@@ -8,171 +8,238 @@
 // v dOᵀ, pᵀ dO, dsᵀ q): ~2.1e11 FLOP at the flagship shape against
 // ~0.25 GB moved.
 //
-// Design: one block of four warps per (k tile of 64 keys, batch*head), each
-// warp owning 16 keys, looping over 32-row q tiles (q, dO, lse, delta) in
-// shared memory, double-buffered with cp.async. The block computes the
-// transposed tiles sᵀ = k qᵀ and dpᵀ = v dOᵀ, so pᵀ and dsᵀ come out in the
-// C layout with keys as rows and are re-packed in registers as the A
-// operand of pᵀ dO and dsᵀ q. The q tile is 32 rows (not 64) to keep the two fp32 accumulators (dk and dv, 16 x D
-// each per warp) and the transposed tiles within the register file. The
-// causal start (the first q tile that reaches this k tile) is the loop's
-// lower bound; q rows past seq_len are masked. Keys past seq_len are never
-// written.
-#include "flash_common.cuh"
+// Design: one block of three warpgroups per (k tile of 128 keys,
+// batch*head). Warpgroup 2 is the producer and gives up its registers: one
+// thread loads the K and V tiles once by TMA and then streams 64-row q and
+// dO tiles through a two-stage ring of full/empty mbarriers; a second warp
+// copies the tiles' 64 lse (times log2 e) and delta values beside them and
+// arrives on the same full barrier. Warpgroups 0 and 1 are consumers with
+// 240 registers, each owning 64 keys and their fp32 dk and dv accumulators.
+// Per q tile, sᵀ = k qᵀ and dpᵀ = v dOᵀ are wgmma m64n64k16 with both
+// operands in shared memory; pᵀ = exp2(sᵀ scale log2 e - lse log2 e) and
+// dsᵀ = pᵀ (dpᵀ - delta) are formed in the accumulator layout (keys as rows,
+// q rows as columns, so lse and delta are indexed by column) and re-packed
+// in registers as the A operand of dv += pᵀ dO and dk += dsᵀ q, where dO and
+// q are MN-major B operands (transpose bit). dk is scaled by d^-0.5 once at
+// the end. The causal start (the first q tile that reaches this k tile) is
+// the loop's lower bound, a consumer skips q tiles that lie wholly before
+// its keys, and the mask is applied only on tiles that straddle the
+// diagonal or the end of the sequence. q rows past seq_len are masked, keys
+// past it are never written. No atomics: each block writes its own dk, dv
+// rows once, so results are the same from run to run.
+#include "sm90_common.cuh"
 
 namespace flash {
 
+template <int D>
+struct DkvLayout {
+  static constexpr int BK = 128, BQ = 64, STAGES = 2;
+  static constexpr int KV_BOX = BK * 128;  // bytes of one [BK x 64] box
+  static constexpr int KV_BYTES = KV_BOX * (D / 64);  // the K or the V tile
+  static constexpr int Q_BOX = BQ * 128;
+  static constexpr int Q_BYTES = Q_BOX * (D / 64);  // one q or dO tile
+  static constexpr int RING_OFF = 2 * KV_BYTES;  // stage s: q tile, then dO tile
+  static constexpr int STATS_OFF = RING_OFF + STAGES * 2 * Q_BYTES;  // stage s: lse, delta
+  static constexpr int BAR_OFF = STATS_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+};
+
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(128)
-bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(384, 1)
+bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
-               float scale) {
-  constexpr int BK = 64, BQ = 32, LD = Tile<D>::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BK * LD;
-  bf16* sQdO = sV + BK * LD;  // two buffers, each a q tile then a dO tile
-  float* sStats = reinterpret_cast<float*>(sQdO + 4 * BQ * LD);  // two (lse, delta)
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, float scale,
+               float scale_log2) {
+  using L = DkvLayout<D>;
+  constexpr int BK = L::BK, BQ = L::BQ, STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ring = smem + L::RING_OFF;
+  float* stats = reinterpret_cast<float*>(smem + L::STATS_OFF);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
 
+  // Grid (k tile, batch*head): the blocks in flight share a few (batch,
+  // head)s, whose q and dO stay in L2; causal: the first k tiles do the most
+  // work.
+  const int k0 = blockIdx.x * BK;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long rs = (long)H * D;
-  const long off = ((long)b * S * H + h) * D;
-  const float* lse_bh = lse + (long)bh * S;
-  const float* delta_bh = delta + (long)bh * S;
-  const int k0 = blockIdx.x * BK;  // causal: the first k tiles do the most work
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int r0 = warp * 16;
-  const int key_lo = k0 + r0 + (lane >> 2), key_hi = key_lo + 8;
-
-  const int qstart = CAUSAL ? (k0 / BQ) * BQ : 0;
+  const int qstart = CAUSAL ? k0 : 0;
   const int ntiles = (S - qstart + BQ - 1) / BQ;
-  load_rows<BK, D>(sK, k + off, k0, S, rs);
-  load_rows<BK, D>(sV, v + off, k0, S, rs);
-  load_rows<BQ, D>(sQdO, q + off, qstart, S, rs);
-  load_rows<BQ, D>(sQdO + BQ * LD, dout + off, qstart, S, rs);
-  load_stats(sStats, lse_bh, BQ, qstart, S);
-  load_stats(sStats + BQ, delta_bh, BQ, qstart, S);
-  cp_commit();
+  const int wg = threadIdx.x >> 7;
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int q0 = qstart + it * BQ;
-    const bf16* cQ = sQdO + (it & 1) * 2 * BQ * LD;
-    const bf16* cdO = cQ + BQ * LD;
-    const float* cL = sStats + (it & 1) * 2 * BQ;
-    const float* cD = cL + BQ;
-    if (it + 1 < ntiles) {  // the next tile's copy runs under this tile's math
-      const int nb = (it + 1) & 1;
-      bf16* nQ = sQdO + nb * 2 * BQ * LD;
-      load_rows<BQ, D>(nQ, q + off, q0 + BQ, S, rs);
-      load_rows<BQ, D>(nQ + BQ * LD, dout + off, q0 + BQ, S, rs);
-      load_stats(sStats + nb * 2 * BQ, lse_bh, BQ, q0 + BQ, S);
-      load_stats(sStats + nb * 2 * BQ + BQ, delta_bh, BQ, q0 + BQ, S);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA thread and the stats warp
+      mbar_init(&empty[s], 256);    // every consumer thread releases the stage
     }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      ldsm_a(ak, sK, LD, r0, kk * 16, lane);
-      ldsm_a(av, sV, LD, r0, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < BQ / 8; n += 2) {
-        uint32_t bb[2][2];
-        ldsm_b_nk(bb, cQ, LD, n * 8, kk * 16, lane);
-        mma_bf16(st[n], ak, bb[0]);
-        mma_bf16(st[n + 1], ak, bb[1]);
-        ldsm_b_nk(bb, cdO, LD, n * 8, kk * 16, lane);
-        mma_bf16(dpt[n], av, bb[0]);
-        mma_bf16(dpt[n + 1], av, bb[1]);
+  if (wg == 2) {
+    // Producer.
+    reg_dealloc<24>();
+    const int pwarp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    if (pwarp == 0 && lane == 0) {
+      mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+      for (int x = 0; x < D / 64; ++x) {
+        tma_load_4d(smem + x * L::KV_BOX, &tk, kv_full, 64 * x, h, k0, b);
+        tma_load_4d(smem + L::KV_BYTES + x * L::KV_BOX, &tv, kv_full, 64 * x, h, k0, b);
       }
-    }
-
-    const bool edge = (q0 + BQ > S) || (CAUSAL && q0 < k0 + BK - 1);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ci = n * 8 + 2 * t + (e & 1);  // q row within the tile
-        float p = __expf(st[n][e] * scale - cL[ci]);
-        if (edge) {
-          const int col = q0 + ci;
-          const int key = e < 2 ? key_lo : key_hi;
-          if (col >= S || (CAUSAL && col < key)) p = 0.f;
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * L::Q_BYTES);
+        unsigned char* dst = ring + s * 2 * L::Q_BYTES;
+        const int q0 = qstart + j * BQ;
+        for (int x = 0; x < D / 64; ++x) {
+          tma_load_4d(dst + x * L::Q_BOX, &tq, &full[s], 64 * x, h, q0, b);
+          tma_load_4d(dst + L::Q_BYTES + x * L::Q_BOX, &tdo, &full[s], 64 * x, h, q0, b);
         }
-        st[n][e] = p;                            // pᵀ
-        dpt[n][e] = p * (dpt[n][e] - cD[ci]);    // dsᵀ
+      }
+    } else if (pwarp == 1) {
+      const float* lse_bh = lse + (long)bh * S;
+      const float* delta_bh = delta + (long)bh * S;
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        const int q0 = qstart + j * BQ;
+        float* st = stats + s * 2 * BQ;
+        for (int i = lane; i < BQ; i += 32) {
+          const bool in = q0 + i < S;
+          st[i] = in ? lse_bh[q0 + i] * kLog2e : 0.f;
+          st[BQ + i] = in ? delta_bh[q0 + i] : 0.f;
+        }
+        mbar_arrive(&full[s]);  // release: the stores above are seen by the waiters
       }
     }
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      uint32_t ap[4], ads[4];
-      c_to_a(ap, st[2 * kc], st[2 * kc + 1]);
-      c_to_a(ads, dpt[2 * kc], dpt[2 * kc + 1]);
-#pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
-        uint32_t bb[2][2];
-        ldsm_b_kn(bb, cdO, LD, kc * 16, j * 8, lane);
-        mma_bf16(dv_acc[j], ap, bb[0]);
-        mma_bf16(dv_acc[j + 1], ap, bb[1]);
-        ldsm_b_kn(bb, cQ, LD, kc * 16, j * 8, lane);
-        mma_bf16(dk_acc[j], ads, bb[0]);
-        mma_bf16(dk_acc[j + 1], ads, bb[1]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it refills
-  }
+  } else {
+    // Consumers: warpgroup wg owns keys k0 + 64 wg .. + 63.
+    reg_alloc<240>();
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+    const uint32_t k_addr = smem_addr(smem) + wg * 64 * 128;
+    const uint32_t v_addr = k_addr + L::KV_BYTES;
+    const int kbase = k0 + 64 * wg;
+    const int key_lo = kbase + 16 * warp + (lane >> 2), key_hi = key_lo + 8;
 
-  if (key_lo < S) {
-    bf16* pk = dk + off + (long)key_lo * rs + 2 * t;
-    bf16* pv = dv + off + (long)key_lo * rs + 2 * t;
+    float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(pk + j * 8) = pack_bf16(dk_acc[j][0] * scale, dk_acc[j][1] * scale);
-      *reinterpret_cast<uint32_t*>(pv + j * 8) = pack_bf16(dv_acc[j][0], dv_acc[j][1]);
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % STAGES;
+      const int q0 = qstart + j * BQ;
+      mbar_wait(&full[s], (j / STAGES) & 1);
+      if (CAUSAL && q0 + BQ - 1 < kbase) {  // every q row lies before every key
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint32_t q_addr = smem_addr(ring) + s * 2 * L::Q_BYTES;
+      const uint32_t do_addr = q_addr + L::Q_BYTES;
+      const float* c_lse = stats + s * 2 * BQ;
+      const float* c_delta = c_lse + BQ;
+
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk & 3) * 32;  // bytes into the box's 128-byte rows
+        wgmma_ss_n64(st, smem_desc(k_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024),
+                     smem_desc(q_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk & 3) * 32;
+        wgmma_ss_n64(dpt, smem_desc(v_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024),
+                     smem_desc(do_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      const bool edge = (q0 + BQ > S) || (CAUSAL && q0 < kbase + 63);
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ci = 8 * i + 2 * t + (e & 1);  // q row within the tile
+          float p = exp2_approx(st[4 * i + e] * scale_log2 - c_lse[ci]);
+          if (edge) {
+            const int key = e < 2 ? key_lo : key_hi;
+            if (q0 + ci >= S || (CAUSAL && q0 + ci < key)) p = 0.f;
+          }
+          st[4 * i + e] = p;                                  // pᵀ
+          dpt[4 * i + e] = p * (dpt[4 * i + e] - c_delta[ci]);  // dsᵀ
+        }
+      }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        c_to_a(pa[kc], &st[8 * kc], &st[8 * kc + 4]);
+        c_to_a(da[kc], &dpt[8 * kc], &dpt[8 * kc + 4]);
+      }
+
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)  // 16 q rows = two 8-row groups
+        wgmma_rs_mn<D>(dv_acc, pa[kc], smem_desc(do_addr + kc * 2048, L::Q_BOX, 1024));
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        wgmma_rs_mn<D>(dk_acc, da[kc], smem_desc(q_addr + kc * 2048, L::Q_BOX, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      mbar_arrive(&empty[s]);
     }
-  }
-  if (key_hi < S) {
-    bf16* pk = dk + off + (long)key_hi * rs + 2 * t;
-    bf16* pv = dv + off + (long)key_hi * rs + 2 * t;
+
+    if (key_lo < S) {
+      const long off = (((long)b * S + key_lo) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(pk + j * 8) = pack_bf16(dk_acc[j][2] * scale, dk_acc[j][3] * scale);
-      *reinterpret_cast<uint32_t*>(pv + j * 8) = pack_bf16(dv_acc[j][2], dv_acc[j][3]);
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
+            pack_bf16(dk_acc[4 * i] * scale, dk_acc[4 * i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
+            pack_bf16(dv_acc[4 * i], dv_acc[4 * i + 1]);
+      }
+    }
+    if (key_hi < S) {
+      const long off = (((long)b * S + key_hi) * H + h) * D + 2 * t;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
+            pack_bf16(dk_acc[4 * i + 2] * scale, dk_acc[4 * i + 3] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
+            pack_bf16(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+      }
     }
   }
 }
 
 template <int D, bool CAUSAL>
-cudaError_t run_dkv(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dk, void* dv, int B, int S, int H, float scale,
-                    cudaStream_t stream) {
-  constexpr int BK = 64, BQ = 32, LD = Tile<D>::LD;
-  const int smem = (2 * BK + 4 * BQ) * LD * (int)sizeof(bf16) + 4 * BQ * (int)sizeof(float);
-  dim3 grid((S + BK - 1) / BK, B * H);
-  return launch(bwd_dkv_kernel<D, CAUSAL>, grid, dim3(128), smem, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, int B, int S,
+                    int H, float scale, cudaStream_t stream) {
+  using L = DkvLayout<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_bshd(&tq, q, B, S, H, D, L::BQ);
+  if (err == cudaSuccess) err = encode_bshd(&tdo, dout, B, S, H, D, L::BQ);
+  if (err == cudaSuccess) err = encode_bshd(&tk, k, B, S, H, D, L::BK);
+  if (err == cudaSuccess) err = encode_bshd(&tv, v, B, S, H, D, L::BK);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + L::BK - 1) / L::BK, B * H);
+  return launch(bwd_dkv_kernel<D, CAUSAL>, grid, dim3(384), L::SMEM, stream, tq, tk, tv, tdo,
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, scale);
+                static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, scale,
+                scale * kLog2e);
 }
 
 }  // namespace flash

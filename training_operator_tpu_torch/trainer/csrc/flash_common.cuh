@@ -1,4 +1,7 @@
-// Shared building blocks of the three flash-attention kernels (sm_90a).
+// Shared building blocks of the flash-attention kernels (sm_90a): the
+// layout contract, the `mma.sync` path of the dq kernel, and the fragment
+// helpers (pack_bf16, c_to_a, quad_max, quad_sum) and launcher that the
+// wgmma kernels reuse through sm90_common.cuh.
 //
 // Layout contract with trainer/flash.py: q, k, v, out, dO, dq, dk, dv are
 // contiguous bf16 [B, S, H, D] (row stride H*D elements); lse and delta are
@@ -115,11 +118,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
-}
-
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -143,16 +141,6 @@ __device__ __forceinline__ void load_rows(bf16* smem, const bf16* base,
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const bool in = row0 + r < seq_len;
     cp_async16(smem + r * LD + c, base + (long)(in ? row0 + r : 0) * row_stride + c, in);
-  }
-}
-
-// Starts copying n fp32 row statistics (lse or delta) from `src` + row0;
-// entries at or past seq_len become zeros.
-__device__ __forceinline__ void load_stats(float* smem, const float* src, int n,
-                                           int row0, int seq_len) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const bool in = row0 + i < seq_len;
-    cp_async4(smem + i, src + (in ? row0 + i : 0), in);
   }
 }
 

@@ -6,176 +6,366 @@
 //
 // Bound on an H100: compute. At the flagship shape ([8, 2048, 12, 128],
 // causal) the two products are ~1.0e11 FLOP against ~0.2 GB of inputs and
-// outputs, ~500 FLOP per byte, above the card's ~295 FLOP/byte ridge.
+// outputs, ~500 FLOP per byte, above the card's ~295 FLOP/byte ridge, so the
+// design is about keeping the tensor cores fed through wgmma.
 //
-// Design: one block of four warps per (q tile of 64 rows, batch*head); each
-// warp owns 16 query rows. The block loops over 64-key tiles of K and V
-// staged in shared memory (the TPU's sequential innermost grid axis becomes
-// this loop). Scores, the running max/sum and the output accumulator stay in
-// registers in the mma C layout; the probabilities are re-packed in
-// registers as the A operand of p v. K/V tiles are double-buffered: the
-// next tile's cp.async copy runs under the current tile's products. The
-// causal limit is the loop bound, and the mask is applied only on tiles that
-// straddle the diagonal or the end of the sequence. Causal grids start with
-// the longest q tiles so the tail of the launch is short. No padding is
-// written to memory: K/V rows past seq_len read as zeros and are masked, and
-// output rows past it are skipped. Not yet: TMA, wgmma, warp specialisation.
-#include "flash_common.cuh"
+// Design: persistent blocks of three warpgroups, at most one per SM, each
+// working through (q tile of 128 rows, batch*head) items. Warpgroup 2 is the
+// producer: it gives up registers (setmaxnreg) and one of its threads
+// issues TMA loads, each item's q tile and then its 128-key K and V tiles
+// into two-stage rings guarded by full/empty mbarriers (K and V apart, so K
+// is released when its scores are done). Warpgroups 0 and 1 are consumers
+// with 240 registers, each owning 64 query rows: s = q kᵀ is wgmma
+// m64n128k16 with both operands in shared memory (a row-major K tile is the
+// K-major B operand), the online softmax runs on the fp32 accumulator in
+// registers (exp2 with log2 e folded into the scale), the probabilities are
+// re-packed in registers as the A operand, and o += p v is wgmma with V as
+// an MN-major B operand (transpose bit), so no transposed copy exists.
+// Within a warpgroup the next tile's scores and the current p v are issued
+// together and the softmax runs under them; the two warpgroups take turns
+// to issue (named barriers), so one's softmax runs under the other's
+// products. Items are dealt to blocks in pairs (q tiles nq-1-p and p of one
+// batch*head, PairSchedule), which under the causal mask all hold the same
+// work; the next item's q tile loads while the current one finishes. The
+// causal limit is the loop bound; the mask is applied only on tiles that
+// straddle the diagonal or the end of the sequence. The tensor maps fill rows past
+// seq_len with zeros; keys past it are masked and output rows past it are
+// not stored.
+#include "sm90_common.cuh"
 
 namespace flash {
 
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(128)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ o,
-           float* __restrict__ lse, int S, int H, float scale) {
-  constexpr int BQ = 64, BK = 64, LD = Tile<D>::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sKV = sQ + BQ * LD;  // two buffers, each a K tile then a V tile
+template <int D>
+struct FwdLayout {
+  static constexpr int BQ = 128, BK = 128, STAGES = 2;
+  static constexpr int Q_BOX = BQ * 128;  // bytes of one [BQ x 64] box
+  static constexpr int KV_BOX = BK * 128;
+  static constexpr int Q_BYTES = Q_BOX * (D / 64);
+  static constexpr int KV_BYTES = KV_BOX * (D / 64);  // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;  // K ring, then V ring, STAGES tiles each
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;  // + alignment slack
+};
 
-  const int nq = (S + BQ - 1) / BQ;
-  const int qt = CAUSAL ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long rs = (long)H * D;
-  const long off = ((long)b * S * H + h) * D;
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int r0 = warp * 16;
-  const int row_lo = q0 + r0 + (lane >> 2), row_hi = row_lo + 8;
-
-  const int kend = CAUSAL ? min(S, q0 + BQ) : S;
-  const int ntiles = (kend + BK - 1) / BK;
-  load_rows<BQ, D>(sQ, q + off, q0, S, rs);
-  load_rows<BK, D>(sKV, k + off, 0, S, rs);
-  load_rows<BK, D>(sKV + BK * LD, v + off, 0, S, rs);
-  cp_commit();
-
-  float acc[D / 8][4];
+// Online softmax of one score tile in the accumulator layout. The running
+// max m is kept in the log2 domain (scores times scale * log2 e); masked
+// entries (only on edge tiles) become -inf, so they add nothing to the max
+// and exp2 gives 0 for them. Leaves p = exp2(s * scale_log2 - m) in `sc`,
+// updates the per-lane partial sums and returns the correction factors of
+// the rows' earlier terms (exactly 1 where the max did not move).
+template <int BK, bool CAUSAL>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], bool edge, int k0, int S,
+                                               int row_lo, int row_hi, int t,
+                                               float scale_log2, float& m_lo, float& m_hi,
+                                               float& l_lo, float& l_hi, float& corr_lo,
+                                               float& corr_hi) {
+  if (edge) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_lo = kMask, m_hi = kMask, l_lo = 0.f, l_hi = 0.f;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * BK;
-    const bf16* cK = sKV + (it & 1) * 2 * BK * LD;
-    const bf16* cV = cK + BK * LD;
-    if (it + 1 < ntiles) {  // the next tile's copy runs under this tile's math
-      bf16* nK = sKV + ((it + 1) & 1) * 2 * BK * LD;
-      load_rows<BK, D>(nK, k + off, k0 + BK, S, rs);
-      load_rows<BK, D>(nK + BK * LD, v + off, k0 + BK, S, rs);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_a(a, sQ, LD, r0, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < BK / 8; n += 2) {
-        uint32_t bb[2][2];
-        ldsm_b_nk(bb, cK, LD, n * 8, kk * 16, lane);
-        mma_bf16(s[n], a, bb[0]);
-        mma_bf16(s[n + 1], a, bb[1]);
-      }
-    }
-
-    const bool edge = (k0 + BK > S) || (CAUSAL && k0 + BK - 1 > q0);
-    float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+    for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
-        if (edge) {
-          const int col = k0 + n * 8 + 2 * t + (e & 1);
-          const int row = e < 2 ? row_lo : row_hi;
-          if (col >= S || (CAUSAL && col > row)) x = kMask;
-        }
-        s[n][e] = x;
+        const int col = k0 + 8 * i + 2 * t + (e & 1);
+        const int row = e < 2 ? row_lo : row_hi;
+        if (col >= S || (CAUSAL && col > row))
+          sc[4 * i + e] = __int_as_float(0xff800000);  // -inf
       }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
-    }
-    mx_lo = quad_max(mx_lo);
-    mx_hi = quad_max(mx_hi);
-    const float corr_lo = __expf(m_lo - mx_lo), corr_hi = __expf(m_hi - mx_hi);
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = __expf(s[n][0] - mx_lo);
-      s[n][1] = __expf(s[n][1] - mx_lo);
-      s[n][2] = __expf(s[n][2] - mx_hi);
-      s[n][3] = __expf(s[n][3] - mx_hi);
-      sum_lo += s[n][0] + s[n][1];
-      sum_hi += s[n][2] + s[n][3];
-    }
-    // Each lane keeps a partial row sum; the quad's partials are added once
-    // at the end (the correction factor is the same on all four lanes).
-    l_lo = l_lo * corr_lo + sum_lo;
-    l_hi = l_hi * corr_hi + sum_hi;
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= corr_lo;
-      acc[j][1] *= corr_lo;
-      acc[j][2] *= corr_hi;
-      acc[j][3] *= corr_hi;
-    }
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
-        uint32_t bb[2][2];
-        ldsm_b_kn(bb, cV, LD, kc * 16, j * 8, lane);
-        mma_bf16(acc[j], a, bb[0]);
-        mma_bf16(acc[j + 1], a, bb[1]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it refills
   }
+  float mx_lo = sc[0], mx_hi = sc[2];
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * i], sc[4 * i + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+  }
+  mx_lo = fmaxf(m_lo, quad_max(mx_lo) * scale_log2);
+  mx_hi = fmaxf(m_hi, quad_max(mx_hi) * scale_log2);
+  corr_lo = exp2_approx(m_lo - mx_lo);
+  corr_hi = exp2_approx(m_hi - mx_hi);
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    sc[4 * i] = exp2_approx(fmaf(sc[4 * i], scale_log2, -mx_lo));
+    sc[4 * i + 1] = exp2_approx(fmaf(sc[4 * i + 1], scale_log2, -mx_lo));
+    sc[4 * i + 2] = exp2_approx(fmaf(sc[4 * i + 2], scale_log2, -mx_hi));
+    sc[4 * i + 3] = exp2_approx(fmaf(sc[4 * i + 3], scale_log2, -mx_hi));
+    sum_lo += sc[4 * i] + sc[4 * i + 1];
+    sum_hi += sc[4 * i + 2] + sc[4 * i + 3];
+  }
+  // Each lane keeps a partial row sum; the quad's partials are added once at
+  // the end (the correction is the same on all four lanes).
+  l_lo = l_lo * corr_lo + sum_lo;
+  l_hi = l_hi * corr_hi + sum_hi;
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+}
 
-  const float den_lo = fmaxf(quad_sum(l_lo), 1e-30f);
-  const float den_hi = fmaxf(quad_sum(l_hi), 1e-30f);
-  const float inv_lo = 1.f / den_lo, inv_hi = 1.f / den_hi;
-  if (row_lo < S) {
-    bf16* out = o + off + (long)row_lo * rs + 2 * t;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + j * 8) = pack_bf16(acc[j][0] * inv_lo, acc[j][1] * inv_lo);
-    if (t == 0) lse[(long)bh * S + row_lo] = m_lo + logf(den_lo);
+// The (batch*head, q tile) items one persistent block works through, of n
+// q tiles per (batch, head). Units of (batch*head, pair p) are dealt to the
+// blocks round-robin; pair p is q tiles n-1-p and p, which under the causal
+// mask hold n + 1 key tiles of work together, so the blocks stay balanced.
+// Consecutive units share a (batch, head), so the blocks in flight share a
+// few (batch, head)s, whose tensors stay in L2.
+struct PairSchedule {
+  int n, npairs, units, u, half;
+  __device__ PairSchedule(int n_tiles, int bh_count)
+      : n(n_tiles), npairs((n_tiles + 1) / 2), units(bh_count * npairs), u(blockIdx.x),
+        half(0) {}
+  // The next (batch*head, tile), or false past the block's last.
+  __device__ bool next(int& bh, int& tile) {
+    if (u >= units) return false;
+    bh = u / npairs;
+    const int p = u % npairs;
+    tile = half == 0 ? n - 1 - p : p;
+    if (half == 0 && p != n - 1 - p) {
+      half = 1;
+    } else {
+      half = 0;
+      u += gridDim.x;
+    }
+    return true;
   }
-  if (row_hi < S) {
-    bf16* out = o + off + (long)row_hi * rs + 2 * t;
+  __device__ bool done() const { return u >= units; }
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(384, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+           float* __restrict__ lse, int S, int H, int BH, float scale_log2) {
+  using L = FwdLayout<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sQ = smem;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* k_empty = k_full + STAGES;
+  uint64_t* v_full = k_empty + STAGES;
+  uint64_t* v_empty = v_full + STAGES;
+  const int nq = (S + BQ - 1) / BQ;
+  const int wg = threadIdx.x >> 7;
+  auto key_tiles = [&](int q0) { return ((CAUSAL ? min(S, q0 + BQ) : S) + BK - 1) / BK; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 256);  // every consumer thread releases the q tile
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 256);
+      mbar_init(&v_empty[s], 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: K and V have rings of their own, so a K tile is released as
+    // soon as its scores are done while the V tile waits for p v. The rings
+    // run on across the block's q tiles, and the next q tile is loaded as
+    // soon as the consumers' last product with the current one is done.
+    reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      PairSchedule sched(nq, BH);
+      int bh, qt, it = 0;
+      for (int n = 0; sched.next(bh, qt); ++n) {
+        const int b = bh / H, h = bh % H, q0 = qt * BQ;
+        mbar_wait(q_empty, (n & 1) ^ 1);
+        mbar_expect_tx(q_full, L::Q_BYTES);
+        for (int x = 0; x < D / 64; ++x)
+          tma_load_4d(sQ + x * L::Q_BOX, &tq, q_full, 64 * x, h, q0, b);
+        const int ntiles = key_tiles(q0);
+        for (int j = 0; j < ntiles; ++j, ++it) {
+          const int s = it % STAGES, parity = ((it / STAGES) & 1) ^ 1;
+          unsigned char* dk = smem + L::K_OFF + s * L::KV_BYTES;
+          unsigned char* dv = smem + L::V_OFF + s * L::KV_BYTES;
+          mbar_wait(&k_empty[s], parity);
+          mbar_expect_tx(&k_full[s], L::KV_BYTES);
+          for (int x = 0; x < D / 64; ++x)
+            tma_load_4d(dk + x * L::KV_BOX, &tk, &k_full[s], 64 * x, h, j * BK, b);
+          mbar_wait(&v_empty[s], parity);
+          mbar_expect_tx(&v_full[s], L::KV_BYTES);
+          for (int x = 0; x < D / 64; ++x)
+            tma_load_4d(dv + x * L::KV_BOX, &tv, &v_full[s], 64 * x, h, j * BK, b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns rows q0 + 64 wg .. + 63 of each q tile.
+    // After a q tile's first key tile, iteration j issues s_j = q k_jᵀ and
+    // o += p_{j-1} v_{j-1} back to back, and the softmax of s_j runs while
+    // the second product is still on the tensor cores. The two warpgroups
+    // take turns to issue their products (named barriers 1 and 2), so one's
+    // softmax runs under the other's products (the schedule of
+    // FlashAttention-3).
+    reg_alloc<240>();
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+    const uint32_t q_addr = smem_addr(sQ) + wg * 64 * 128;
+    const uint32_t k_ring = smem_addr(smem + L::K_OFF);
+    const uint32_t v_ring = smem_addr(smem + L::V_OFF);
+
+    float acc[D / 2];
+    uint32_t pa[BK / 16][4];  // p of the previous tile, the A operand of p v
+    float m_lo, m_hi, l_lo, l_hi, corr_lo, corr_hi;
+    auto scores = [&](float (&sc)[BK / 2], int it) {  // issues s = q kᵀ, ring slot it
+      const uint32_t k_addr = k_ring + (it % STAGES) * L::KV_BYTES;
+      fence_regs(sc);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + j * 8) = pack_bf16(acc[j][2] * inv_hi, acc[j][3] * inv_hi);
-    if (t == 0) lse[(long)bh * S + row_hi] = m_hi + logf(den_hi);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk & 3) * 32;  // bytes into the box's 128-byte rows
+        wgmma_ss_n128(sc, smem_desc(q_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024),
+                      smem_desc(k_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      fence_regs(sc);
+    };
+    auto pv = [&](int it) {  // issues o += p v, ring slot it
+      const uint32_t v_addr = v_ring + (it % STAGES) * L::KV_BYTES;
+      mbar_wait(&v_full[it % STAGES], (it / STAGES) & 1);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)  // 16 keys = two 8-row groups of V
+        wgmma_rs_mn<D>(acc, pa[kc], smem_desc(v_addr + kc * 2048, L::KV_BOX, 1024));
+      wgmma_commit();
+      fence_regs(acc);
+    };
+    auto rescale = [&]() {  // skipped by a warp whose rows kept their max
+      if (__any_sync(0xffffffffu, corr_lo != 1.f || corr_hi != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          acc[4 * i] *= corr_lo;
+          acc[4 * i + 1] *= corr_lo;
+          acc[4 * i + 2] *= corr_hi;
+          acc[4 * i + 3] *= corr_hi;
+        }
+      }
+    };
+    // Turns: warpgroup 0 issues first; each warpgroup hands the turn over
+    // after issuing a key tile's products, warpgroup 1 not after the
+    // block's last, so every wait on a barrier meets exactly one hand-over.
+    const int own_turn = 1 + wg, other_turn = 2 - wg;
+    auto take_turn = [&]() { named_bar_sync(own_turn, 256); };
+    auto pass_turn = [&](bool block_last) {
+      if (wg == 0 || !block_last) named_bar_arrive(other_turn, 256);
+    };
+    if (wg == 1) named_bar_arrive(1, 256);
+
+    PairSchedule sched(nq, BH);
+    int bh, qt, it = 0;
+    for (int n = 0; sched.next(bh, qt); ++n) {
+      const bool last_q = sched.done();
+      const int b = bh / H, h = bh % H, q0 = qt * BQ;
+      const int ntiles = key_tiles(q0);
+      const int rbase = q0 + 64 * wg;
+      const int row_lo = rbase + 16 * warp + (lane >> 2), row_hi = row_lo + 8;
+      auto softmax = [&](float (&sc)[BK / 2], int j) {
+        const int k0 = j * BK;
+        const bool edge = (k0 + BK > S) || (CAUSAL && k0 + BK - 1 > rbase);
+        online_softmax<BK, CAUSAL>(sc, edge, k0, S, row_lo, row_hi, t, scale_log2, m_lo,
+                                   m_hi, l_lo, l_hi, corr_lo, corr_hi);
+      };
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      m_lo = m_hi = kMask;
+      l_lo = l_hi = 0.f;
+      mbar_wait(q_full, n & 1);
+      {
+        float sc[BK / 2];
+        mbar_wait(&k_full[it % STAGES], (it / STAGES) & 1);
+        take_turn();
+        scores(sc, it);
+        pass_turn(last_q && ntiles == 1);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        mbar_arrive(&k_empty[it % STAGES]);
+        if (ntiles == 1) mbar_arrive(q_empty);
+        softmax(sc, 0);
+#pragma unroll
+        for (int kc = 0; kc < BK / 16; ++kc) c_to_a(pa[kc], &sc[8 * kc], &sc[8 * kc + 4]);
+      }
+      for (int j = 1; j < ntiles; ++j) {
+        const int cur = it + j;
+        float sc[BK / 2];
+        mbar_wait(&k_full[cur % STAGES], (cur / STAGES) & 1);
+        take_turn();
+        scores(sc, cur);
+        rescale();  // by the previous tile's correction, before its p v lands in o
+        pv(cur - 1);
+        pass_turn(last_q && j + 1 == ntiles);
+        wgmma_wait<1>();  // the scores; p v may still run
+        fence_regs(sc);
+        mbar_arrive(&k_empty[cur % STAGES]);
+        if (j + 1 == ntiles) mbar_arrive(q_empty);  // the producer may load the next q tile
+        softmax(sc, j);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_frags(pa);
+        mbar_arrive(&v_empty[(cur - 1) % STAGES]);
+#pragma unroll
+        for (int kc = 0; kc < BK / 16; ++kc) c_to_a(pa[kc], &sc[8 * kc], &sc[8 * kc + 4]);
+      }
+      it += ntiles;
+      rescale();
+      pv(it - 1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_frags(pa);
+      mbar_arrive(&v_empty[(it - 1) % STAGES]);
+
+      const float den_lo = fmaxf(quad_sum(l_lo), 1e-30f);
+      const float den_hi = fmaxf(quad_sum(l_hi), 1e-30f);
+      const float inv_lo = 1.f / den_lo, inv_hi = 1.f / den_hi;
+      constexpr float kLn2 = 0.6931471805599453f;
+      if (row_lo < S) {
+        bf16* out = o + (((long)b * S + row_lo) * H + h) * D + 2 * t;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+          *reinterpret_cast<uint32_t*>(out + 8 * i) =
+              pack_bf16(acc[4 * i] * inv_lo, acc[4 * i + 1] * inv_lo);
+        if (t == 0) lse[(long)bh * S + row_lo] = (m_lo + __log2f(den_lo)) * kLn2;
+      }
+      if (row_hi < S) {
+        bf16* out = o + (((long)b * S + row_hi) * H + h) * D + 2 * t;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+          *reinterpret_cast<uint32_t*>(out + 8 * i) =
+              pack_bf16(acc[4 * i + 2] * inv_hi, acc[4 * i + 3] * inv_hi);
+        if (t == 0) lse[(long)bh * S + row_hi] = (m_hi + __log2f(den_hi)) * kLn2;
+      }
+    }
   }
 }
 
+// Blocks of the persistent launch over n q tiles of B*H (batch, head)s: one
+// per SM at most, as PairSchedule deals them.
+inline cudaError_t persistent_grid(int n_tiles, int bh_count, dim3* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int units = bh_count * ((n_tiles + 1) / 2);
+  *grid = dim3(units < sms ? units : sms);
+  return cudaSuccess;
+}
+
+
 template <int D, bool CAUSAL>
-cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o,
-                    void* lse, int B, int S, int H, float scale,
-                    cudaStream_t stream) {
-  constexpr int BQ = 64, BK = 64, LD = Tile<D>::LD;
-  const int smem = (BQ + 4 * BK) * LD * (int)sizeof(bf16);
-  dim3 grid((S + BQ - 1) / BQ, B * H);
-  return launch(fwd_kernel<D, CAUSAL>, grid, dim3(128), smem, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                static_cast<float*>(lse), S, H, scale);
+cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                    int S, int H, float scale, cudaStream_t stream) {
+  using L = FwdLayout<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_bshd(&tq, q, B, S, H, D, L::BQ);
+  if (err == cudaSuccess) err = encode_bshd(&tk, k, B, S, H, D, L::BK);
+  if (err == cudaSuccess) err = encode_bshd(&tv, v, B, S, H, D, L::BK);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  err = persistent_grid((S + L::BQ - 1) / L::BQ, B * H, &grid);
+  if (err != cudaSuccess) return err;
+  return launch(fwd_kernel<D, CAUSAL>, grid, dim3(384), L::SMEM, stream, tq, tk, tv,
+                static_cast<bf16*>(o), static_cast<float*>(lse), S, H, B * H, scale * kLog2e);
 }
 
 }  // namespace flash

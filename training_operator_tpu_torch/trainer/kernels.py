@@ -5,8 +5,10 @@ shared library with a plain C interface and loaded with `ctypes` (the
 pattern of the JAX package's native data loader, with nvcc in place of g++).
 The sources compile in parallel, one nvcc per file, at first use, into
 `training_operator_tpu_torch/build/` under a name keyed by a hash of every
-source, the shared header and the compile command, so an edited source is
-never served from a stale library.
+source, every header in HEADERS and the compile command, so an edited source
+or header is never served from a stale library. The TMA kernels build their
+tensor maps with libcuda's cuTensorMapEncodeTiled, looked up at run time
+through the CUDA runtime, so nothing links against libcuda.
 
 There is no fallback: without nvcc, or when a source fails to compile,
 `load()` raises.
@@ -28,7 +30,14 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu")
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "sm90_common.cuh")
+# How each source computes: "wgmma+tma" kernels must show HGMMA and UTMALDG
+# instructions in their SASS (`sass_counts`); "mma.sync" ones use neither.
+DESIGN = {
+    "flash_fwd.cu": "wgmma+tma",
+    "flash_bwd_dq.cu": "mma.sync",
+    "flash_bwd_dkv.cu": "wgmma+tma",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -58,6 +67,7 @@ class Kernels:
     error_string: ctypes._CFuncPtr
     build_seconds: float
     log: str  # ptxas register/shared-memory/spill report of a fresh build
+    libraries: Dict[str, Path]  # source -> built shared library
 
     def call(self, name: str, *args) -> None:
         """Calls one C entry point and raises on a non-zero CUDA error."""
@@ -125,6 +135,18 @@ def build() -> tuple:
     return outs, time.perf_counter() - t0, "".join(log)
 
 
+def sass_counts(libraries: Dict[str, Path]) -> Dict[str, Dict[str, int]]:
+    """{source: {"HGMMA": n, "UTMALDG": n}}: Hopper tensor-core (wgmma) and
+    TMA-load instructions in each library's SASS, read with cuobjdump."""
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    counts = {}
+    for src, lib in libraries.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts[src] = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    return counts
+
+
 def load() -> Kernels:
     """Builds (once per process and source hash) and loads the kernels."""
     global _loaded
@@ -142,5 +164,6 @@ def load() -> Kernels:
         err = libs["flash_fwd.cu"].flash_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _loaded = Kernels(fns=fns, error_string=err, build_seconds=seconds, log=log)
+        _loaded = Kernels(fns=fns, error_string=err, build_seconds=seconds, log=log,
+                          libraries=outs)
         return _loaded
