@@ -7,14 +7,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device   the card must be there; prints nvidia-smi's name and power limit.
 2. build    builds the flash-attention kernels from trainer/csrc with nvcc;
-            prints ptxas's register/spill report and, per library, the
-            HGMMA (wgmma) and UTMALDG (TMA load) instructions in its SASS
-            (cuobjdump). A kernel of the "wgmma+tma" design (kernels.DESIGN)
-            with none of either fails the run.
+            prints ptxas's register/spill report and warnings and, per
+            library, the HGMMA (wgmma) and UTMALDG (TMA load) instructions
+            in its SASS (cuobjdump). A kernel of the "wgmma+tma" design
+            (kernels.DESIGN) with none of either, or any spill, fails the run.
 3. kernels  holds each kernel against its plain PyTorch version on the card
             at the flagship attention shape [8, 2048, 12, 128] bf16 causal
             and at [2, 1000, 4, 64] bf16, causal and not; times each at the
-            flagship shape beside its plain version, SDPA and its bound.
+            flagship shape beside its plain version, SDPA and its bound, and
+            the backward pair (dq then dk/dv) beside SDPA's whole backward.
 4. train    the flagship decoder (554M params, batch 8 x seq 2048, bf16,
             full remat of every layer and of the head) through
             init_train_state / make_train_step, fed by the DataLoader over a
@@ -56,6 +57,7 @@ inputs:
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -178,11 +180,15 @@ def main() -> int:
         + "; ".join(f"{src} ({kernels.DESIGN[src]}) HGMMA {n['HGMMA']} UTMALDG {n['UTMALDG']}"
                     for src, n in sass.items()))
     for line in k.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("registers", "spill", "warning")) or line.startswith("=="):
             log("  ptxas " + line.strip())
     for src, n in sass.items():
         if kernels.DESIGN[src] == "wgmma+tma" and not (n["HGMMA"] and n["UTMALDG"]):
             raise AssertionError(f"{src} is a wgmma+tma kernel but its SASS has {n}")
+    spills = [line.strip() for line in k.log.splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    if spills:
+        raise AssertionError(f"ptxas reports spills: {spills}")
 
     # 3. kernels
     flagship = (8, 2048, 12, 128)
@@ -292,6 +298,8 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "design": kernels.DESIGN[sources[name]],
+            "hgmma": sass[sources[name]]["HGMMA"],
+            "utmaldg": sass[sources[name]]["UTMALDG"],
             "source": f"training_operator_tpu_torch/trainer/csrc/{sources[name]}",
             "replaces": replaces[name],
             "launches": flash.launches[name],
@@ -301,6 +309,9 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            # No call computes dq or dk/dv alone: SDPA's whole backward,
+            # the time of the pair (the `flash_bwd` timing line).
+            "library_bwd_ms": t["library_bwd_ms"],
         })
     print(json.dumps({"kernels": rows}))
     print(card)

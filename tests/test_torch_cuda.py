@@ -32,9 +32,13 @@ def _inputs(shape, seed):
 
 
 # (1, 129, 2, 128): one row past a 128-row tile; (2, 384, 3, 128): whole
-# tiles; (1, 200, 2, 64) and (1, 333, 2, 64): ragged D=64 tiles.
+# tiles; (1, 200, 2, 64) and (1, 333, 2, 64): ragged D=64 tiles;
+# (1, 64, 1, 64) and (2, 100, 3, 128): shorter than one 128-row q tile;
+# (1, 640, 2, 128): five q tiles, so one of dq's tile pairs is a tile with
+# itself; (4, 1000, 40, 64): more (batch, head)s than SMs, ragged.
 @pytest.mark.parametrize("shape", [(2, 256, 4, 128), (1, 333, 2, 64), (1, 129, 2, 128),
-                                   (2, 384, 3, 128), (1, 200, 2, 64)])
+                                   (2, 384, 3, 128), (1, 200, 2, 64), (1, 64, 1, 64),
+                                   (2, 100, 3, 128), (1, 640, 2, 128), (4, 1000, 40, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernels_match_plain(card, shape, causal):
     """Tolerances as in chip_smoke.py: out 1e-2 + 1e-2*|ref|, lse 1e-3,
@@ -57,6 +61,20 @@ def test_kernels_match_plain(card, shape, causal):
         floor = 1e-2 * r.square().mean().sqrt()
         worst = ((g.float() - r).abs() / (row_rms + r.abs() + floor)).max().item()
         assert worst <= 2e-2, (name, worst)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_is_deterministic(card, causal):
+    """dq uses no atomics: every entry is summed in one fixed order, so two
+    launches on the same inputs agree bit for bit; a difference is a race."""
+    shape = (2, 1000, 12, 128)
+    q, k, v, do = _inputs(shape, 2)
+    b, s, h, _ = shape
+    out, lse = flash.flash_fwd(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
+    first = flash.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    second = flash.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    assert torch.equal(first, second)
 
 
 def test_kernels_refuse_what_they_do_not_take(card):

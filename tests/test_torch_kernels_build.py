@@ -50,16 +50,21 @@ def test_tag_ignores_unlisted_files(csrc_copy):
     assert kernels._tag() == before
 
 
+# What a source of each design must contain: its Hopper helpers, TMA loads,
+# wgmma products and the consumers' register hand-over.
+DESIGN_REQUIRES = {
+    "wgmma+tma": ('#include "sm90_common.cuh"', "tma_load_4d", "wgmma_", "reg_alloc"),
+}
+
+
 @pytest.mark.parametrize("src", kernels.SOURCES)
 def test_each_source_names_its_design(src):
     design = kernels.DESIGN[src]
     text = (kernels.CSRC / src).read_text()
-    if design == "wgmma+tma":
-        assert '#include "sm90_common.cuh"' in text
-        assert "tma_load_4d" in text and "wgmma_" in text and "reg_alloc" in text
-    else:
-        assert design == "mma.sync"
-        assert "sm90_common.cuh" not in text and "mma_bf16" in text
+    for token in DESIGN_REQUIRES[design]:
+        assert token in text, (src, design, token)
+    # No source falls back to the pre-Hopper instructions.
+    assert "mma.sync" not in text and "ldmatrix" not in text and "cp.async." not in text
     assert set(kernels.DESIGN) == set(kernels.SOURCES)
 
 

@@ -235,8 +235,10 @@ def bench_attention(batch: int = 8, seq: int = 2048, heads: int = 12,
     inputs, with its bound on this card. `library_ms` times one PyTorch call
     computing the same function (scaled_dot_product_attention for the
     forward; none computes dq alone or dk/dv alone, so those are None and
-    `library_bwd_ms` times SDPA's whole backward instead). The port never
-    calls SDPA; it is a yardstick here only."""
+    `library_bwd_ms` times SDPA's whole backward instead). The row
+    `flash_bwd` is the backward pair, dq then dk/dv, beside SDPA's whole
+    backward as its `library_ms`. The port never calls SDPA; it is a
+    yardstick here only."""
     from training_operator_tpu_torch.trainer import flash
 
     device = resolve_device(device)
@@ -276,7 +278,11 @@ def bench_attention(batch: int = 8, seq: int = 2048, heads: int = 12,
     peak_bytes = _peak(PEAK_BYTES_PER_S, name)
     if peak_flops is None or peak_bytes is None:
         raise ValueError(f"no published peak rates for {name!r}: bounds need them")
+    dq, dkv = runs["flash_bwd_dq"], runs["flash_bwd_dkv"]
+    runs["flash_bwd"] = (lambda: (dq[0](), dkv[0]()), lambda: (dq[1](), dkv[1]()), sdpa_bwd)
     work = attention_work(batch, seq, heads, head_dim, causal)
+    work["flash_bwd"] = {key: work["flash_bwd_dq"][key] + work["flash_bwd_dkv"][key]
+                         for key in ("flops", "bytes")}
     bwd_ms = cuda_time_ms(sdpa_bwd, iters=iters)
     result = {}
     for kname, (kernel, plain, library) in runs.items():
@@ -305,9 +311,10 @@ SWEEP_SHAPES = ((8, 2048, 12, 128, True), (8, 2048, 12, 128, False),
 
 
 def attention_sweep(shapes=SWEEP_SHAPES, iters: int = 20, device=None) -> list:
-    """The forward and dk/dv kernels' ms and TFLOP/s (over the work
-    `attention_work` counts) at each shape, beside SDPA's forward on the
-    same inputs."""
+    """Each flash kernel's ms and TFLOP/s (over the work `attention_work`
+    counts) at each shape, beside SDPA's forward on the same inputs; and the
+    backward pair, dq then dk/dv (`flash_bwd_ms`), beside SDPA's whole
+    backward (`sdpa_bwd_ms`), which computes the same three gradients."""
     from training_operator_tpu_torch.trainer import flash
 
     device = resolve_device(device)
@@ -321,20 +328,37 @@ def attention_sweep(shapes=SWEEP_SHAPES, iters: int = 20, device=None) -> list:
         out, lse = flash.flash_fwd(q, k, v, causal)
         delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        o_sdpa = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        do_t = do.transpose(1, 2)
         work = attention_work(b, s, h, d, causal)
+
+        def dq():
+            return flash.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+
+        def dkv():
+            return flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+
         times = {
             "flash_fwd": cuda_time_ms(lambda: flash.flash_fwd(q, k, v, causal), iters=iters),
             "sdpa_fwd": cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal), iters=iters),
-            "flash_bwd_dkv": cuda_time_ms(
-                lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal), iters=iters),
+            "flash_bwd_dq": cuda_time_ms(dq, iters=iters),
+            "flash_bwd_dkv": cuda_time_ms(dkv, iters=iters),
         }
         flops = {"flash_fwd": work["flash_fwd"]["flops"], "sdpa_fwd": work["flash_fwd"]["flops"],
+                 "flash_bwd_dq": work["flash_bwd_dq"]["flops"],
                  "flash_bwd_dkv": work["flash_bwd_dkv"]["flops"]}
+        pair = {
+            "flash_bwd_ms": cuda_time_ms(lambda: (dq(), dkv()), iters=iters),
+            "sdpa_bwd_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                o_sdpa, (qg, kg, vg), do_t, retain_graph=True), iters=iters),
+        }
         rows.append({"shape": [b, s, h, d], "causal": causal,
                      **{f"{n}_ms": t for n, t in times.items()},
-                     **{f"{n}_tflops": flops[n] / t / 1e9 for n, t in times.items()}})
-        del q, k, v, do, out, lse, delta, qt, kt, vt
+                     **{f"{n}_tflops": flops[n] / t / 1e9 for n, t in times.items()},
+                     **pair})
+        del q, k, v, do, out, lse, delta, qt, kt, vt, qg, kg, vg, o_sdpa, do_t
     return rows
 
 

@@ -99,34 +99,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], bool edge, i
   m_hi = mx_hi;
 }
 
-// The (batch*head, q tile) items one persistent block works through, of n
-// q tiles per (batch, head). Units of (batch*head, pair p) are dealt to the
-// blocks round-robin; pair p is q tiles n-1-p and p, which under the causal
-// mask hold n + 1 key tiles of work together, so the blocks stay balanced.
-// Consecutive units share a (batch, head), so the blocks in flight share a
-// few (batch, head)s, whose tensors stay in L2.
-struct PairSchedule {
-  int n, npairs, units, u, half;
-  __device__ PairSchedule(int n_tiles, int bh_count)
-      : n(n_tiles), npairs((n_tiles + 1) / 2), units(bh_count * npairs), u(blockIdx.x),
-        half(0) {}
-  // The next (batch*head, tile), or false past the block's last.
-  __device__ bool next(int& bh, int& tile) {
-    if (u >= units) return false;
-    bh = u / npairs;
-    const int p = u % npairs;
-    tile = half == 0 ? n - 1 - p : p;
-    if (half == 0 && p != n - 1 - p) {
-      half = 1;
-    } else {
-      half = 0;
-      u += gridDim.x;
-    }
-    return true;
-  }
-  __device__ bool done() const { return u >= units; }
-};
-
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(384, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -338,19 +310,6 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     }
   }
 }
-
-// Blocks of the persistent launch over n q tiles of B*H (batch, head)s: one
-// per SM at most, as PairSchedule deals them.
-inline cudaError_t persistent_grid(int n_tiles, int bh_count, dim3* grid) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int units = bh_count * ((n_tiles + 1) / 2);
-  *grid = dim3(units < sms ? units : sms);
-  return cudaSuccess;
-}
-
 
 template <int D, bool CAUSAL>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,

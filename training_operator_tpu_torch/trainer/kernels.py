@@ -31,11 +31,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu")
 HEADERS = ("flash_common.cuh", "sm90_common.cuh")
-# How each source computes: "wgmma+tma" kernels must show HGMMA and UTMALDG
-# instructions in their SASS (`sass_counts`); "mma.sync" ones use neither.
+# How each source computes: a "wgmma+tma" kernel must show HGMMA and UTMALDG
+# instructions in its SASS (`sass_counts`).
 DESIGN = {
     "flash_fwd.cu": "wgmma+tma",
-    "flash_bwd_dq.cu": "mma.sync",
+    "flash_bwd_dq.cu": "wgmma+tma",
     "flash_bwd_dkv.cu": "wgmma+tma",
 }
 NVCC_FLAGS = (
