@@ -17,14 +17,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             flagship shape beside its plain version, SDPA and its bound, and
             the backward pair (dq then dk/dv) beside SDPA's whole backward.
 4. train    the flagship decoder (554M params, batch 8 x seq 2048, bf16,
-            full remat of every layer and of the head) through
-            init_train_state / make_train_step, fed by the DataLoader over a
-            synthetic TokenDataset: 1 warm-up step and 5 timed steps. The
-            launch counts are reset just before this phase and read after
-            every step: 24 forward (12 layers + their remat recompute), 12 dq
-            and 12 dk/dv launches per step. The first loss and the first
+            remat "save_attn_qkv" on every layer and remat of the head)
+            through init_train_state / make_train_step, fed by the
+            DataLoader over a synthetic TokenDataset: 1 warm-up step and 5
+            timed steps. The launch counts are reset just before this phase
+            and read after every step: 12 forward, 12 dq and 12 dk/dv
+            launches per step (the layers keep their attention residuals,
+            so backward launches no forward). The first loss and the first
             gradients of wq, wk and wv are checked against the same
-            parameters through the plain attention path.
+            parameters through the plain attention path. Then one step
+            under remat "full", which must launch 24 / 12 / 12 (the forward
+            again in each layer's recompute).
+5. loop     the trainer loop (standalone.train_loop) at the flagship's full
+            size: the DataLoader on the native gather (required: a failed
+            build fails the phase), 12 steps, a DCP save every 6 steps into
+            a temporary directory with max_to_keep=1, and the forced final
+            save on step 12, which overwrites the interval save crash-safely.
+            The state restored into a fresh zero-filled template must equal
+            the live state bit for bit (every tensor, the AdamW count, the
+            step); one more step from each on the same batch must give
+            losses within 1e-6. MODEL_EXPORT_URI=file://<tmp> must export
+            exactly the final step's files. The port's graft entry
+            (graft_entry.entry()) must give a finite loss equal to loss_fn on
+            the same arguments. Prints the scratch disk's free space first,
+            and seconds and bytes per save, wall tokens/s, data_pct and
+            ckpt_pct; the temporary directories are removed at the end.
 
 The last lines are the `kernels` JSON line, the card's name and power limit,
 and `{"ok": true, "device": {...}}`.
@@ -53,13 +70,20 @@ inputs:
   parameters through the plain attention path, and the step-0 gradients of
   wq, wk and wv (which reach the loss through dq, dk and dv) within
   GRAD_REL_TOL in relative Frobenius norm per layer.
+- loop: the restore bit for bit; the step after it within 1e-6 of the live
+  state's (the same parameters, batch and kernels: any difference would be
+  the card's summation order, which the kernels fix); the graft entry's
+  loss within 1e-6 of loss_fn on the same arguments.
 """
 
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -149,6 +173,102 @@ def attention_grads(model, batch, config):
     return loss.item(), grads
 
 
+def run_loop(config, batch, seq, card):
+    """Phase 5; see the module docstring. Raises on any failed check."""
+    import torch
+
+    from training_operator_tpu_torch import graft_entry
+    from training_operator_tpu_torch.trainer import flash
+    from training_operator_tpu_torch.trainer.checkpoint import Checkpointer
+    from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset
+    from training_operator_tpu_torch.trainer.model import loss_fn
+    from training_operator_tpu_torch.trainer.standalone import export_final, train_loop
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+        state_dict,
+        template_train_state,
+    )
+
+    scratch = tempfile.gettempdir()
+    log(f"loop: scratch disk {scratch}: {shutil.disk_usage(scratch).free / 1e9:.1f} GB free "
+        f"(a flagship checkpoint is ~6.6 GB; the overwrite holds two)")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    export_dir = tempfile.mkdtemp(prefix="chip-smoke-export-")
+    try:
+        steps = 12
+        optimizer = make_optimizer(warmup_steps=1, total_steps=100)
+        state = init_train_state(config, optimizer)
+        step_fn = make_train_step(config, optimizer)
+        dataset = TokenDataset.synthetic(config.vocab_size, seq, num_rows=batch * 8, seed=1)
+        loader = DataLoader(dataset, batch_size=batch, shuffle=True, seed=0, use_native=True)
+        if not loader.use_native:
+            raise AssertionError("the loader did not take the native gather")
+        ckpt = Checkpointer(ckpt_dir, max_to_keep=1)
+        flash.reset_launches()
+        stats = train_loop(config, optimizer, state, loader, steps, ckpt, step_fn=step_fn,
+                           save_every=6, log=lambda msg: log("loop: " + msg))
+        loop_launches = dict(flash.launches)
+        want = {name: steps * config.n_layers for name in loop_launches}
+        if loop_launches != want:
+            raise AssertionError(f"loop launches {loop_launches}, expected {want}")
+        if stats["done"] != steps or stats["saves"] != 3 or ckpt.all_steps() != [steps]:
+            raise AssertionError(f"loop ended at {stats['done']} with {stats['saves']} saves, "
+                                 f"steps on disk {ckpt.all_steps()}")
+        save_bytes = ckpt.step_bytes(steps)
+        wall = stats["wall_s"]
+        log(f"loop: {steps} steps in {wall:.3f} s, "
+            f"{steps * batch * seq / wall:.1f} tokens/s wall, {stats['saves']} saves "
+            f"(6, 12, forced 12) {stats['ckpt_s'] / stats['saves']:.3f} s and {save_bytes} "
+            f"bytes each, data_pct {100 * stats['data_s'] / wall:.4f}, ckpt_pct "
+            f"{100 * stats['ckpt_s'] / wall:.2f}, native gather on, launches {loop_launches} "
+            f"on {card}")
+
+        t = time.perf_counter()
+        restored = ckpt.restore(template_train_state(config, optimizer))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        live, back = state_dict(state), state_dict(restored)
+        unequal = [k for k in live if not (live[k].device == back[k].device
+                                           and torch.equal(live[k], back[k]))]
+        if unequal or restored.step != steps or restored.opt_state.count != steps:
+            raise AssertionError(f"restore differs from the live state: {unequal[:5]}, "
+                                 f"step {restored.step}, count {restored.opt_state.count}")
+        example = next(iter(loader.epoch(7)))
+        _, m_live = step_fn(state, example)
+        _, m_back = step_fn(restored, example)
+        a, b = m_live["loss"].item(), m_back["loss"].item()
+        if not abs(a - b) <= 1e-6:
+            raise AssertionError(f"step after restore: loss {b} vs live {a}")
+        log(f"loop: restore {restore_s:.3f} s, {len(live)} entries bitwise equal; step "
+            f"{steps + 1} loss live {a:.6f} restored {b:.6f} (bitwise equal: {a == b})")
+        del state, restored, live, back
+        torch.cuda.empty_cache()
+
+        env = {"MODEL_EXPORT_URI": "file://" + export_dir, "PROCESS_ID": "0"}
+        exported = export_final(ckpt_dir, steps, env)
+        final_dir = os.path.join(ckpt_dir, str(steps))
+        got = {n: os.path.getsize(os.path.join(export_dir, n)) for n in os.listdir(export_dir)}
+        want_files = {n: os.path.getsize(os.path.join(final_dir, n))
+                      for n in os.listdir(final_dir)}
+        if got != want_files:
+            raise AssertionError(f"export holds {sorted(got)}, the final step {sorted(want_files)}")
+        log(f"loop: exported step {steps} only to {exported}: {len(got)} files, "
+            f"{sum(got.values())} bytes")
+
+        fn, args = graft_entry.entry()
+        with torch.no_grad():
+            loss = fn(*args).item()
+            ref = loss_fn(*args, graft_entry._tiny_config()).item()
+        if not (torch.isfinite(torch.tensor(loss)) and abs(loss - ref) <= 1e-6):
+            raise AssertionError(f"graft entry loss {loss} vs loss_fn {ref}")
+        log(f"loop: graft entry loss {loss:.6f} (loss_fn {ref:.6f})")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(export_dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -230,14 +350,14 @@ def main() -> int:
     del xla_grads, flash_grads
     torch.cuda.empty_cache()
     log(f"train: {total / 1e6:.1f}M params ({n_matmul / 1e6:.1f}M in products), "
-        f"batch {batch} x seq {seq}, {config.dtype}, remat full + head; "
+        f"batch {batch} x seq {seq}, {config.dtype}, remat {config.remat_policy} + head; "
         f"step-0 loss plain attention {xla_loss:.6f} flash {flash_loss:.6f}; "
         f"gradient rel err flash vs plain, worst layer: " + json.dumps(grad_errs))
     if not max(grad_errs.values()) <= GRAD_REL_TOL:
         raise AssertionError(f"step-0 attention gradients, flash vs plain: {grad_errs} "
                              f"beyond {GRAD_REL_TOL}")
 
-    per_step = {"flash_fwd": 2 * config.n_layers, "flash_bwd_dq": config.n_layers,
+    per_step = {"flash_fwd": config.n_layers, "flash_bwd_dq": config.n_layers,
                 "flash_bwd_dkv": config.n_layers}
     flash.reset_launches()
     losses, times = [], []
@@ -275,12 +395,31 @@ def main() -> int:
     tokens_s = batch * seq / (step_ms / 1e3)
     fps = bench.flops_per_step(config, n_matmul, batch, seq)
     mfu = fps / (step_ms / 1e3) / bench.PEAK_BF16_FLOPS["H100"]
+    train_launches = dict(flash.launches)
     log(f"train: {step_ms:.2f} ms/step (mean of {len(times)}), {tokens_s:.1f} tokens/s, "
         f"MFU {mfu:.4f} of 989 TFLOP/s bf16, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {dict(flash.launches)} "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {train_launches} "
         f"on {card}")
 
-    # 5. report
+    # The earlier path: one step with every layer under remat "full".
+    full = dataclasses.replace(config, remat_policy="full")
+    full_step = make_train_step(full, optimizer)
+    flash.reset_launches()
+    state, metrics = full_step(state, next(it))
+    full_loss = metrics["loss"].item()
+    want = {**per_step, "flash_fwd": 2 * config.n_layers}
+    if dict(flash.launches) != want or not torch.isfinite(metrics["loss"]):
+        raise AssertionError(f"remat full step: launches {dict(flash.launches)}, expected "
+                             f"{want}; loss {full_loss}")
+    log(f"train: one step under remat full, loss {full_loss:.6f}, launches "
+        f"{dict(flash.launches)}")
+    del state, step_fn, full_step, first, data, metrics, it, loader
+    torch.cuda.empty_cache()
+
+    # 5. loop
+    run_loop(config, batch, seq, card)
+
+    # 6. report
     sources = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",
                "flash_bwd_dkv": "flash_bwd_dkv.cu"}
     replaces = {
@@ -302,7 +441,7 @@ def main() -> int:
             "utmaldg": sass[sources[name]]["UTMALDG"],
             "source": f"training_operator_tpu_torch/trainer/csrc/{sources[name]}",
             "replaces": replaces[name],
-            "launches": flash.launches[name],
+            "launches": train_launches[name],
             "max_abs_err": err_of[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

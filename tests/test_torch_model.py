@@ -133,7 +133,7 @@ def test_rms_norm_and_rope_match():
     "kw,exc",
     [
         ({"n_experts": 4}, NotImplementedError),
-        ({"remat_policy": "save_attn_qkv"}, NotImplementedError),
+        ({"pipeline_microbatches": 2}, NotImplementedError),
         ({"remat_policy": "bogus"}, ValueError),
         ({"n_heads": 3}, ValueError),
     ],
@@ -155,3 +155,68 @@ def test_init_params_distribution():
     assert abs(p["layers.wq"].std().item() - std) < 0.05 * std
     assert abs(p["layers.w2"].std().item() - std / 2.0) < 0.05 * std
     assert torch.all(p["layers.ln1"] == 1) and torch.all(p["ln_f"] == 1)
+
+
+POLICIES = ("full", "save_attn", "save_attn_qkv", "mlp_only", "save_dots")
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_remat_policy_matches_jax(policy):
+    """Each remat policy against jax.value_and_grad under the same policy:
+    the loss and every gradient leaf, fp32, at the tolerance stated in
+    test_loss_and_grads_match_fp32."""
+    jcfg, pcfg = configs(remat=True, remat_head=True, remat_policy=policy)
+    params = jax_params(jcfg)
+    batch = numpy_batch(3)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    exp_loss, exp_grads = jax.value_and_grad(jax_model.loss_fn)(params, jbatch, jcfg)
+    model = port_model(pcfg, params)
+    loss = pt_model.loss_fn(model, torch_batch(batch))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(exp_loss), rtol=1e-4)
+    exp = flatten_tree(jax.tree.map(np.asarray, exp_grads))
+    for name, p in model.named_parameters():
+        scale = np.abs(exp[name]).max()
+        np.testing.assert_allclose(p.grad.numpy(), exp[name], rtol=1e-4, atol=1e-4 * scale,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("policy,per_layer", [("full", 2), ("save_dots", 2), ("save_attn", 1),
+                                              ("save_attn_qkv", 1), ("mlp_only", 1)])
+def test_remat_policy_flash_forward_calls(policy, per_layer, monkeypatch):
+    """The port's counterpart of the JAX save_attn test: with the flash path
+    (its plain version on the CPU), one training step calls the forward 2L
+    times under "full" and "save_dots" (each layer's recompute runs it
+    again) and L times where the policy keeps its outputs or runs attention
+    outside the checkpoint. The gradients do not change."""
+    from training_operator_tpu_torch.trainer import flash as pt_flash
+
+    calls = []
+    plain = pt_flash.flash_fwd_plain
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(pt_flash, "flash_fwd_plain", counted)
+    params = jax_params(configs()[0])
+    batch = torch_batch(numpy_batch(4))
+    grads = {}
+    for pol in ("full", policy):
+        _, pcfg = configs(attn_impl="flash", remat_policy=pol)
+        model = port_model(pcfg, params)
+        calls.clear()
+        pt_model.loss_fn(model, batch).backward()
+        grads[pol] = {n: p.grad for n, p in model.named_parameters()}
+        count = len(calls)
+    assert count == per_layer * TINY["n_layers"]
+    for name, g in grads[policy].items():
+        torch.testing.assert_close(g, grads["full"][name], rtol=1e-5, atol=1e-6)
+
+
+def test_unknown_remat_policy_rejected():
+    _, pcfg = configs(remat_policy="save_atn")
+    with pytest.raises(ValueError, match="remat_policy"):
+        pt_model.init_params(pcfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="remat_policy"):
+        pt_model.layer_body(pcfg, torch.zeros(1, 1))

@@ -7,6 +7,8 @@ the parameters really move; with the default warmup of 100 a short run
 would compare parameters that barely moved.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,3 +107,24 @@ def test_example_batch_shapes():
     assert b["tokens"].dtype == torch.int32 and tuple(b["tokens"].shape) == (2, 16)
     torch.testing.assert_close(b["targets"], torch.roll(b["tokens"], -1, dims=1))
     assert torch.all(b["mask"] == 1)
+
+
+def test_step_runs_its_own_config(monkeypatch):
+    """make_train_step computes the loss under the config it was given (as
+    the JAX step does), not the one the model was built with: a step made
+    with attn_impl="flash" takes the flash path on a model built for the
+    plain path."""
+    from training_operator_tpu_torch.trainer import flash as pt_flash
+
+    calls = []
+    plain = pt_flash.flash_fwd_plain
+    monkeypatch.setattr(pt_flash, "flash_fwd_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    _, pcfg = configs(attn_impl="xla")
+    flash_cfg = dataclasses.replace(pcfg, attn_impl="flash", remat_policy="full")
+    opt = pt_train.make_optimizer()
+    state = pt_train.init_train_state(pcfg, opt, device="cpu")
+    pt_train.make_train_step(pcfg, opt, device="cpu")(state, torch_batch(numpy_batch(5)))
+    assert not calls
+    pt_train.make_train_step(flash_cfg, opt, device="cpu")(state, torch_batch(numpy_batch(5)))
+    assert len(calls) == 2 * pcfg.n_layers

@@ -1,5 +1,6 @@
 """The trainer runtime on one NVIDIA card: the flagship decoder, its flash
-attention kernels, the AdamW train step and the token data loader.
+attention kernels, the AdamW train step, the token data loader, the
+checkpointer and the trainer loop (standalone.py).
 
 Counterpart of training_operator_tpu/trainer (without the mesh, which is not
 ported yet). Entry points run on the card unless the caller passes

@@ -51,6 +51,11 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto") -> torch.Tensor:
         rep = heads // kv_heads
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    if impl == "flash" or (impl == "auto" and q.is_cuda and kernel_supports(q)):
+    if takes_flash(q, impl):
         return flash_attention(q, k, v, causal)
     return plain_attention(q, k, v, causal)
+
+
+def takes_flash(q: torch.Tensor, impl: str) -> bool:
+    """Whether `attention(q, ..., impl=impl)` takes the flash path."""
+    return impl == "flash" or (impl == "auto" and q.is_cuda and kernel_supports(q))

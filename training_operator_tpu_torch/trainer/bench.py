@@ -1,16 +1,19 @@
-"""Single-card trainer benchmark: step time, tokens/s, MFU, and the flash
-kernels against their plain versions.
+"""Single-card trainer benchmark: step time, tokens/s, MFU, the flash
+kernels against their plain versions, and the training loop around them.
 
-Counterpart of part of training_operator_tpu/trainer/bench.py
-(flagship_config, _count_params, flops_per_step, bench_train_step without
-the phase breakdown, bench_attention). Times come from CUDA events around
-work on the card; the entry points run on the card unless the caller passes
-another device, and a measurement that finds no card raises.
+Counterpart of training_operator_tpu/trainer/bench.py (flagship_config,
+_count_params, flops_per_step, bench_train_step without the phase
+breakdown, bench_attention, bench_dataloader, bench_trainer_e2e,
+run_trainer_bench). Times come from CUDA events around work on the card,
+and the loop's from the host clock; the entry points run on the card unless
+the caller passes another device, and a measurement that finds no card
+raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -31,10 +34,13 @@ def _peak(table: Dict[str, float], device_name: str):
 
 
 def flagship_config() -> Tuple[TransformerConfig, int, int]:
-    """(config, batch, seq) of the card's flagship: the ~554M-param decoder
-    (d_model 1536, 12 layers, 12 heads of 128 so the flash kernels engage)
-    at batch 8 x seq 2048, with full remat of each layer and of the head +
-    loss (the only remat policy ported so far)."""
+    """(config, batch, seq) of the card's flagship, the JAX package's own:
+    the ~554M-param decoder (d_model 1536, 12 layers, 12 heads of 128 so the
+    flash kernels engage) at batch 8 x seq 2048. Each layer keeps its
+    attention residuals (q, k, v, out, lse) under `save_attn_qkv`, so
+    backward recomputes neither the qkv products nor the flash forward; the
+    head + loss region is rematerialised so its [B, S, V] logits are not
+    kept."""
     return (
         TransformerConfig(
             vocab_size=32768,
@@ -44,7 +50,7 @@ def flagship_config() -> Tuple[TransformerConfig, int, int]:
             n_kv_heads=12,
             d_ff=6144,
             max_seq_len=2048,
-            remat_policy="full",
+            remat_policy="save_attn_qkv",
             remat_head=True,
         ),
         8,
@@ -283,7 +289,6 @@ def bench_attention(batch: int = 8, seq: int = 2048, heads: int = 12,
     work = attention_work(batch, seq, heads, head_dim, causal)
     work["flash_bwd"] = {key: work["flash_bwd_dq"][key] + work["flash_bwd_dkv"][key]
                          for key in ("flops", "bytes")}
-    bwd_ms = cuda_time_ms(sdpa_bwd, iters=iters)
     result = {}
     for kname, (kernel, plain, library) in runs.items():
         t_ops = work[kname]["flops"] / peak_flops * 1e3
@@ -294,12 +299,16 @@ def bench_attention(batch: int = 8, seq: int = 2048, heads: int = 12,
             "ms": cuda_time_ms(kernel, iters=iters),
             "plain_ms": cuda_time_ms(plain, iters=max(2, iters // 4), warmup=1),
             "library_ms": cuda_time_ms(library, iters=iters) if library else None,
-            "library_bwd_ms": None if library else bwd_ms,
+            "library_bwd_ms": None,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": work[kname]["flops"],
             "bytes": work[kname]["bytes"],
         }
+    # dq and dk/dv alone have no library call: SDPA's whole backward, timed
+    # once, in the pair's row.
+    for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+        result[kname]["library_bwd_ms"] = result["flash_bwd"]["library_ms"]
     return result
 
 
@@ -395,12 +404,132 @@ def loss_gaps(seeds=(0, 1), batches: int = 3, device=None) -> list:
     return gaps
 
 
+def bench_dataloader(rows: int = 65536, row_len: int = 2049, batch: int = 512,
+                     iters: int = 20) -> Dict[str, Any]:
+    """Host data-path throughput: shuffled row gather out of an in-memory
+    token arena, the native C++ threaded path against the numpy fancy-index
+    path (identical output: tests/test_torch_loop.py). GB/s is what
+    matters: the gather must outrun the device step to stay hidden. Raises
+    when the native library does not build."""
+    import numpy as np
+
+    from training_operator_tpu_torch import native
+
+    if not native.available():
+        raise RuntimeError(f"native dataio did not build: {native.build_error()}")
+    rng = np.random.RandomState(0)
+    # dtype= on randint avoids a transient int64 arena (2x peak memory).
+    arena = rng.randint(0, 32768, size=(rows, row_len), dtype=np.int32)
+    idx = rng.randint(0, rows, size=(iters, batch), dtype=np.int64)
+    bytes_per_iter = batch * row_len * 4
+
+    t = time.perf_counter()
+    for i in range(iters):
+        _ = arena[idx[i]]
+    numpy_s = (time.perf_counter() - t) / iters
+    buf = np.empty((batch, row_len), dtype=np.int32)
+    native.gather_rows(arena, idx[0], out=buf)  # warm the library
+
+    def native_gbps(threads):
+        t = time.perf_counter()
+        for i in range(iters):
+            native.gather_rows(arena, idx[i], out=buf, threads=threads)
+        return bytes_per_iter / ((time.perf_counter() - t) / iters) / 1e9
+
+    threads = native.default_threads()
+    by_threads = {n: native_gbps(n) for n in sorted({1, 2, 4, threads})}
+    return {
+        "batch_mb": bytes_per_iter / 1e6,
+        "numpy_gather_gbps": bytes_per_iter / numpy_s / 1e9,
+        "native_gather_gbps": by_threads[threads],
+        "native_speedup": by_threads[threads] * numpy_s * 1e9 / bytes_per_iter,
+        "native_threads": threads,
+        "native_gather_gbps_by_threads": by_threads,
+    }
+
+
+def bench_trainer_e2e(steps: int = 20, ckpt_every: int = 10, warmup: int = 2,
+                      config: Optional[TransformerConfig] = None, batch: int = 0,
+                      seq: int = 0, device=None) -> Dict[str, Any]:
+    """End-to-end training-loop throughput: `standalone.train_loop` (the
+    native-gather loader feeding the train step, an interval save every
+    `ckpt_every` steps and the forced final save) over `steps` steps after
+    `warmup` steps, the flagship by default. Wall tokens/s is the number a
+    job sees; `data_pct` and `ckpt_pct` are the shares of the wall time the
+    host spent waiting for the next batch and in saves (each save after a
+    fence, so it does not absorb the step before). Checkpoints go to a
+    temporary directory, one kept, removed at the end."""
+    import itertools
+    import shutil
+    import tempfile
+
+    from training_operator_tpu_torch.trainer.checkpoint import Checkpointer
+    from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset
+    from training_operator_tpu_torch.trainer.standalone import train_loop
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    device = resolve_device(device)
+    if config is None:
+        config, batch, seq = flagship_config()
+    ds = TokenDataset.synthetic(config.vocab_size, seq, num_rows=batch * 8)
+    loader = DataLoader(ds, batch_size=batch, shuffle=True, device=device, use_native=True)
+    optimizer = make_optimizer(total_steps=steps + warmup + 1)
+    state = init_train_state(config, optimizer, device=device)
+    step_fn = make_train_step(config, optimizer, device=device)
+    for example in itertools.islice(loader.epoch(0), warmup):
+        state, _ = step_fn(state, example)
+    ckpt_dir = tempfile.mkdtemp(prefix="trainer-e2e-ckpt-")
+    try:
+        ckpt = Checkpointer(ckpt_dir, max_to_keep=1)
+        stats = train_loop(config, optimizer, state, loader, warmup + steps, ckpt,
+                           step_fn=step_fn, save_every=ckpt_every, log=lambda _: None)
+        save_bytes = ckpt.step_bytes(ckpt.latest_step())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    wall = stats["wall_s"]
+    tokens = stats["steps_run"] * batch * seq
+    return {
+        "device": str(device),
+        "steps": stats["steps_run"],
+        "batch": batch,
+        "seq": seq,
+        "ckpt_saves": stats["saves"],
+        "native_dataio": bool(loader.use_native),
+        "wall_s": wall,
+        "tokens_per_s_wall": tokens / wall,
+        "data_pct": 100 * stats["data_s"] / wall,
+        "ckpt_pct": 100 * stats["ckpt_s"] / wall,
+        "ckpt_s_per_save": stats["ckpt_s"] / stats["saves"],
+        "ckpt_bytes_per_save": save_bytes,
+        "final_loss": float(stats["last_metrics"]["loss"]),
+    }
+
+
+def run_trainer_bench(steps: int = 10, device=None) -> Dict[str, Any]:
+    """The flagship train step, the kernels at its attention shape, the
+    data path and the end-to-end loop on the card. Unlike the JAX version,
+    a failure raises instead of turning into an error entry."""
+    config, batch, seq = flagship_config()
+    return {
+        "train_step": bench_train_step(config, batch, seq, steps=steps, device=device),
+        "attention": bench_attention(batch, seq, config.n_heads, config.head_dim,
+                                     device=device),
+        "dataloader": bench_dataloader(),
+        "trainer_e2e": bench_trainer_e2e(steps=2 * steps, ckpt_every=steps, device=device),
+    }
+
+
 def main(argv=None) -> None:
     """`python -m training_operator_tpu_torch.trainer.bench`: the flagship
     train step, its profile and the three kernels at the flagship attention
     shape, on the card; one JSON object on stdout. With `--attention`, only
     the kernels: `bench_attention` at the flagship shape and
-    `attention_sweep`; with `--loss-gap`, only `loss_gaps`."""
+    `attention_sweep`; with `--loss-gap`, only `loss_gaps`; with `--loop`,
+    `run_trainer_bench` (step, kernels, data path, end-to-end loop)."""
     import argparse
     import json
     import subprocess
@@ -410,6 +539,8 @@ def main(argv=None) -> None:
                         help="time the flash kernels only (bench_attention, attention_sweep)")
     parser.add_argument("--loss-gap", action="store_true",
                         help="flash vs plain-attention forward loss over six batches only")
+    parser.add_argument("--loop", action="store_true",
+                        help="run_trainer_bench: step, kernels, data path and the loop")
     args = parser.parse_args(argv)
     config, batch, seq = flagship_config()
     card = subprocess.run(
@@ -418,6 +549,8 @@ def main(argv=None) -> None:
     ).stdout.strip()
     if args.loss_gap:
         out = {"card": card, "loss_gaps": loss_gaps()}
+    elif args.loop:
+        out = {"card": card, **run_trainer_bench()}
     elif args.attention:
         out = {
             "card": card,

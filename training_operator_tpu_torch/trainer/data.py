@@ -1,9 +1,9 @@
 """Data pipeline: process-sharded token batches as tensors on the device.
 
-Counterpart of training_operator_tpu/trainer/data.py, numpy gather path only
-(the native C++ prefetcher is not ported yet). The shuffle is the JAX
+Counterpart of training_operator_tpu/trainer/data.py. The shuffle is the JAX
 loader's `RandomState(seed + epoch)` permutation, so both loaders yield the
-same batches in the same order.
+same batches in the same order, through the numpy gather or the native C++
+prefetcher (training_operator_tpu_torch/native) alike.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from training_operator_tpu_torch import native
 from training_operator_tpu_torch.trainer.model import resolve_device
 
 
@@ -68,10 +69,18 @@ class TokenDataset:
 
 class DataLoader:
     """Yields {tokens, targets, mask} tensors on `device` (the card unless
-    the caller names another): tokens/targets int32, mask fp32."""
+    the caller names another): tokens/targets int32, mask fp32.
+
+    `use_native`: the native C++ gather (real OS threads copy the shuffled
+    rows out of the possibly memory-mapped arena, the NEXT batch gathered
+    while the current one is emitted). None takes it where it builds and the
+    rows are C-contiguous int32, as the JAX loader does; True requires it
+    and raises when it does not build. The batches are the same either
+    way."""
 
     def __init__(self, dataset: TokenDataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, drop_last: bool = True, device=None):
+                 seed: int = 0, drop_last: bool = True, device=None,
+                 use_native: Optional[bool] = None):
         if batch_size > len(dataset):
             raise ValueError(
                 f"batch_size {batch_size} exceeds dataset shard of {len(dataset)} rows"
@@ -82,6 +91,14 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.device = resolve_device(device)
+        rows = dataset.rows
+        fits = rows.dtype == np.int32 and rows.flags.c_contiguous
+        if use_native is None:
+            use_native = fits and native.available()
+        elif use_native and not native.available():
+            raise RuntimeError(f"use_native=True but the native dataio did not build: "
+                               f"{native.build_error()}")
+        self.use_native = use_native
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self.epoch(0)
@@ -92,7 +109,18 @@ class DataLoader:
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
         end = (len(rows) // self.batch_size) * self.batch_size if self.drop_last else len(rows)
-        for start in range(0, end, self.batch_size):
+        starts = list(range(0, end, self.batch_size))
+        if self.use_native and starts:
+            with native.Prefetcher(rows) as pf:
+                pf.submit(order[starts[0] : starts[0] + self.batch_size])
+                for i, start in enumerate(starts):
+                    chunk = pf.wait()
+                    if i + 1 < len(starts):
+                        nxt = starts[i + 1]
+                        pf.submit(order[nxt : nxt + self.batch_size])
+                    yield self._emit(chunk)
+            return
+        for start in starts:
             yield self._emit(rows[order[start : start + self.batch_size]])
 
     def _emit(self, chunk: np.ndarray) -> Dict[str, torch.Tensor]:

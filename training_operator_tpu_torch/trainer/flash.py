@@ -11,7 +11,9 @@ module:
 Each wrapper dispatches on the device of its inputs: a CPU tensor goes to the
 plain version (the CPU tests), a CUDA tensor launches the kernel or raises.
 There is no fallback from the card to the plain version. Every launch adds
-one to `launches[name]`.
+one to `launches[name]`. The wrappers are registered as dispatcher ops
+(`torch.ops.training_operator_tpu_torch.flash_*`) that carry the autograd
+rule, so selective remat can keep the forward op's outputs.
 
 Shapes follow the JAX package: q, k, v are [B, S, H, D] with equal head
 counts (GQA is expanded by attention.py's dispatcher); lse is [B*H, S, 1]
@@ -198,39 +200,89 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
 
 
 # ----------------------------------------------------------------------
-# autograd rule
+# Dispatcher ops and their autograd rule
 # ----------------------------------------------------------------------
+# The three wrappers are registered as torch.library custom ops, each with a
+# fake (meta) version, so the dispatcher sees the kernels as ops: a selective
+# remat policy can name the forward op and keep its (out, lse), as the JAX
+# package names the custom_vjp residuals "attn_out" and "attn_lse"
+# (model.py, save_attn). The ops call the wrappers above, so the CPU takes
+# the plain versions, the card launches the kernels, and `launches` counts
+# every launch.
 
-class _FlashAttention(torch.autograd.Function):
+OPS = "training_operator_tpu_torch"
+
+
+@torch.library.custom_op(f"{OPS}::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_fwd(q, k, v, causal)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal):
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b * h, s, 1), dtype=torch.float32)
+
+
+@torch.library.custom_op(f"{OPS}::flash_bwd_dq", mutates_args=())
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                     lse: torch.Tensor, delta: torch.Tensor, causal: bool) -> torch.Tensor:
+    return flash_bwd_dq(q, k, v, do, lse, delta, causal)
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, delta, causal):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op(f"{OPS}::flash_bwd_dkv", mutates_args=())
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                      lse: torch.Tensor, delta: torch.Tensor,
+                      causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, causal):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+# The forward op as the dispatcher sees it (what a remat policy matches).
+FLASH_FWD_OP = torch.ops.training_operator_tpu_torch.flash_fwd.default
+
+
+def _setup_context(ctx, inputs, output):
     """Residuals (q, k, v, out, lse), as the JAX custom_vjp saves them; the
     lse output's cotangent is dropped (it feeds no loss)."""
+    q, k, v, causal = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal = causal
+    ctx.mark_non_differentiable(lse)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_fwd(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, g, _g_lse):
-        q, k, v, out, lse = ctx.saved_tensors
-        b, s, h, _ = q.shape
-        # delta_i = rowsum(dO_i * O_i) in fp32, outside the kernels as in the
-        # JAX backward; folded to the kernels' [B*H, S] row order.
-        delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
-        dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.causal)
-        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.causal)
-        return dq, dk, dv, None
+def _backward(ctx, g, _g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    b, s, h, _ = q.shape
+    # delta_i = rowsum(dO_i * O_i) in fp32, outside the kernels as in the
+    # JAX backward; folded to the kernels' [B*H, S] row order.
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
+    ops = torch.ops.training_operator_tpu_torch
+    dq = ops.flash_bwd_dq(q, k, v, g, lse, delta, ctx.causal)
+    dk, dv = ops.flash_bwd_dkv(q, k, v, g, lse, delta, ctx.causal)
+    return dq, dk, dv, None
+
+
+_flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = True):
     """(out [B, S, H, D], lse [B*H, S, 1] fp32). The lse is a primal output
     without a gradient: a loss built from it gets none back through it."""
-    return _FlashAttention.apply(q, k, v, causal)
+    return torch.ops.training_operator_tpu_torch.flash_fwd(q, k, v, causal)
 
 
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """Flash attention on [B, S, H, D]; K/V carry Q's head count."""
-    return _FlashAttention.apply(q, k, v, causal)[0]
+    return flash_attention_with_lse(q, k, v, causal)[0]

@@ -12,23 +12,29 @@ names and layout so the weight bridge (convert.py) is a renaming:
   (bf16 by default), and the lm head runs in fp32.
 
 Architecture: pre-RMSNorm, split-half rotary embeddings, GQA-capable
-attention, SwiGLU MLP. `remat=True` wraps each layer in activation
-checkpointing; `remat_head=True` does the same for the head and loss.
-Mixture-of-experts, pipeline stages and the selective remat policies are not
-ported yet and raise.
+attention, SwiGLU MLP. `remat=True` applies `remat_policy` to each layer
+(`layer_body`, the JAX `make_layer_body`); `remat_head=True` checkpoints the
+head and loss. Mixture-of-experts and pipeline stages are not ported yet and
+raise.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from training_operator_tpu_torch.trainer.attention import attention
+from training_operator_tpu_torch.trainer.attention import attention, takes_flash
+from training_operator_tpu_torch.trainer.flash import FLASH_FWD_OP
 
 
 def resolve_device(device=None) -> torch.device:
@@ -62,7 +68,11 @@ class TransformerConfig:
     # "auto" (flash kernels on the card where they take the dtype and
     # head_dim), "flash", "xla" (the plain path).
     attn_impl: str = "auto"
-    # Selective remat: only "full" (recompute the whole layer) is ported.
+    # What a layer keeps for its backward under remat (see `layer_body`):
+    # "full" (only the layer input), "save_attn" (+ the flash forward's out
+    # and lse), "save_attn_qkv" (+ the RoPE'd q, k and v), "mlp_only" (the
+    # whole attention half; only the MLP half is recomputed), "save_dots"
+    # (every weight product's output).
     remat_policy: str = "full"
     remat_head: bool = False
 
@@ -80,10 +90,9 @@ class TransformerConfig:
                 f"unknown remat_policy {self.remat_policy!r}; "
                 f"one of {self.REMAT_POLICIES}"
             )
-        if self.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} is not ported yet; use 'full'"
-            )
+        if self.pipeline_microbatches:
+            raise NotImplementedError("pipeline stages (pipeline_microbatches > 0) are "
+                                      "not ported yet")
         if self.n_experts != 0:
             raise NotImplementedError("mixture-of-experts (n_experts > 0) is not ported yet")
 
@@ -182,18 +191,29 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _attn_block(x, lp, config: TransformerConfig, positions, attn_impl: str):
-    """norm -> qkv -> rope -> attention -> output projection."""
+def _qkv_products(x, lp, config: TransformerConfig):
+    """norm -> the q, k, v products, as [b, s, heads, head_dim]."""
     c = config
     b, s, _ = x.shape
     h = _rms_norm(x, lp["ln1"])
     q = (h @ lp["wq"].to(c.dtype)).reshape(b, s, c.n_heads, c.head_dim)
     k = (h @ lp["wk"].to(c.dtype)).reshape(b, s, c.n_kv_heads, c.head_dim)
     v = (h @ lp["wv"].to(c.dtype)).reshape(b, s, c.n_kv_heads, c.head_dim)
+    return q, k, v
+
+
+def _out_projection(attn, lp, config: TransformerConfig):
+    b, s = attn.shape[:2]
+    return attn.reshape(b, s, config.n_heads * config.head_dim) @ lp["wo"].to(config.dtype)
+
+
+def _attn_block(x, lp, config: TransformerConfig, positions, attn_impl: str):
+    """norm -> qkv -> rope -> attention -> output projection."""
+    c = config
+    q, k, v = _qkv_products(x, lp, c)
     q = _rope(q, positions, c.rope_theta)
     k = _rope(k, positions, c.rope_theta)
-    attn = attention(q, k, v, causal=True, impl=attn_impl)
-    return attn.reshape(b, s, c.n_heads * c.head_dim) @ lp["wo"].to(c.dtype)
+    return _out_projection(attention(q, k, v, causal=True, impl=attn_impl), lp, c)
 
 
 def _mlp_block(x, lp, config: TransformerConfig):
@@ -211,6 +231,111 @@ def decoder_layer(x, lp, config: TransformerConfig, positions, attn_impl: str = 
     return x + _mlp_block(x, lp, config)
 
 
+def _out_and_mlp(x, attn, lp, config: TransformerConfig):
+    """The layer after its attention: output projection, residual, MLP."""
+    x = x + _out_projection(attn, lp, config)
+    return x + _mlp_block(x, lp, config)
+
+
+class _NormQKV(torch.autograd.Function):
+    """`_qkv_products` keeping only its inputs for the backward: that
+    recomputes the norm (the weight gradients need its output) and none of
+    the three products, whose gradients are products with the saved
+    weights."""
+
+    @staticmethod
+    def forward(ctx, x, ln1, wq, wk, wv, config):
+        ctx.save_for_backward(x, ln1, wq, wk, wv)
+        ctx.config = config
+        return _qkv_products(x, {"ln1": ln1, "wq": wq, "wk": wk, "wv": wv}, config)
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        x, ln1, *ws = ctx.saved_tensors
+        dtype = ctx.config.dtype
+        with torch.enable_grad():
+            xd, lnd = x.detach().requires_grad_(), ln1.detach().requires_grad_()
+            h = _rms_norm(xd, lnd)
+        h2 = h.detach().reshape(-1, h.shape[-1])
+        dh, dws = None, []
+        for w, g in zip(ws, (gq, gk, gv)):
+            g2 = g.reshape(h2.shape[0], -1)
+            dws.append((h2.t() @ g2).to(w.dtype))
+            d = g2 @ w.to(dtype).t()
+            dh = d if dh is None else dh + d
+        dx, dln = torch.autograd.grad(h, (xd, lnd), dh.reshape(h.shape))
+        return dx, dln, *dws, None
+
+
+def _save_flash_outputs(ctx, op, *args, **kwargs):
+    """save_attn: keep the flash forward op's (out, lse), JAX's "attn_out"
+    and "attn_lse"."""
+    if op is FLASH_FWD_OP:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """save_dots: JAX's dots_with_no_batch_dims_saveable. A weight product
+    `h @ w` reaches the dispatcher as `mm`; batched products (the plain
+    attention's einsums, `bmm`) and the flash op are recomputed."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SELECTIVE = {"save_attn": _save_flash_outputs, "save_dots": _save_weight_products}
+
+
+def layer_body(config: TransformerConfig, positions) -> Callable:
+    """`(x, lp) -> x` for one layer with the config's remat policy applied
+    (the JAX `make_layer_body`):
+
+    - "full": the whole layer under `checkpoint`; backward recomputes it,
+      the flash forward included (2 forward launches per layer and step).
+    - "save_attn", "save_dots": the whole layer under `checkpoint` with a
+      selective policy: the flash op's outputs, or every weight product's,
+      are kept and not recomputed.
+    - "save_attn_qkv": attention runs outside the checkpoint. The qkv
+      products keep only their inputs (`_NormQKV`); RoPE keeps only its
+      cos/sin; the flash op keeps (q, k, v, out, lse), as JAX keeps the names
+      attn_q/k/v and attn_out/lse. The plain attention path is checkpointed
+      on its own, keeping q, k, v and its output. Output projection and MLP
+      are recomputed under `checkpoint`.
+    - "mlp_only": attention outside the checkpoint, unchanged; only the MLP
+      half is recomputed.
+    """
+    c = config
+    impl = c.attn_impl
+    if not c.remat:
+        return lambda x, lp: decoder_layer(x, lp, c, positions, impl)
+    policy = c.remat_policy
+    if policy == "mlp_only":
+        def body(x, lp):
+            x = x + _attn_block(x, lp, c, positions, impl)
+            return x + checkpoint(_mlp_block, x, lp, c, use_reentrant=False)
+        return body
+    if policy == "save_attn_qkv":
+        def body(x, lp):
+            q, k, v = _NormQKV.apply(x, *(lp[n] for n in ("ln1", "wq", "wk", "wv")), c)
+            q = _rope(q, positions, c.rope_theta)
+            k = _rope(k, positions, c.rope_theta)
+            if takes_flash(q, impl):
+                attn = attention(q, k, v, causal=True, impl=impl)
+            else:
+                attn = checkpoint(attention, q, k, v, True, impl, use_reentrant=False)
+            return checkpoint(_out_and_mlp, x, attn, lp, c, use_reentrant=False)
+        return body
+    if policy != "full" and policy not in _SELECTIVE:
+        raise ValueError(f"unknown remat_policy {policy!r}; one of {c.REMAT_POLICIES}")
+    kwargs = {}
+    if policy in _SELECTIVE:
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _SELECTIVE[policy])
+    return lambda x, lp: checkpoint(decoder_layer, x, lp, c, positions, impl,
+                                    use_reentrant=False, **kwargs)
+
+
 def backbone(model: Transformer, tokens: torch.Tensor,
              config: Optional[TransformerConfig] = None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, D]. `config`
@@ -219,12 +344,9 @@ def backbone(model: Transformer, tokens: torch.Tensor,
     b, s = tokens.shape
     x = model.embed.to(c.dtype)[tokens.long()]
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    body = layer_body(c, positions)
     for lp in model.layers.unbind():
-        if c.remat:
-            x = checkpoint(decoder_layer, x, lp, c, positions, c.attn_impl,
-                           use_reentrant=False)
-        else:
-            x = decoder_layer(x, lp, c, positions, c.attn_impl)
+        x = body(x, lp)
     return _rms_norm(x, model.ln_f)
 
 

@@ -1,0 +1,176 @@
+"""The trainer-image entry: what runs inside a scheduled job's pod.
+
+Counterpart of examples/trainer_standalone.py, single process:
+
+    python -m training_operator_tpu_torch.trainer.standalone [--steps N]
+        [--seq-len S] [--batch-size B] [--checkpoint-dir DIR] [--resume]
+        [--device cpu]
+
+It reads the bootstrap env the operator injects (PROCESS_ID /
+NUM_PROCESSES, MODEL_EXPORT_URI), resumes from the newest checkpoint
+whenever one exists, runs `train_loop` and exports the final step. It runs
+on the card unless `--device cpu` is given. More than one process
+(NUM_PROCESSES > 1) needs the torch-distributed bootstrap of the sharding
+slice and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from training_operator_tpu_torch.trainer.checkpoint import Checkpointer, restore_into_mesh
+from training_operator_tpu_torch.trainer.data import (
+    DataLoader,
+    TokenDataset,
+    prefetch,
+    process_shard,
+)
+from training_operator_tpu_torch.trainer.model import TransformerConfig, resolve_device
+from training_operator_tpu_torch.trainer.train import (
+    AdamW,
+    TrainState,
+    init_train_state,
+    make_optimizer,
+    make_train_step,
+)
+
+
+def train_loop(config: TransformerConfig, optimizer: AdamW, state: TrainState,
+               loader: DataLoader, steps: int, ckpt: Checkpointer,
+               step_fn: Optional[Callable] = None, save_every: int = 10,
+               log: Callable[[str], None] = print) -> Dict[str, Any]:
+    """Trains `state` in place up to global step `steps`, as the JAX loop
+    does line for line: epochs of `prefetch(loader.epoch(epoch), size=2)`
+    with the epoch counter starting at 0 (after a resume too), a log line
+    every 5 steps and at the last, an interval save every `save_every`
+    steps, and a forced save of the final step (which overwrites the
+    interval save when they coincide).
+
+    Returns the loop's accounting: `done` (the final step), `steps_run`,
+    `saves`, `wall_s`, `data_s` (host time waiting for the next batch),
+    `ckpt_s` (time in saves, measured after the device finished the step
+    before) and `last_metrics`."""
+    step_fn = step_fn or make_train_step(config, optimizer, device=loader.device)
+    cuda = loader.device.type == "cuda"
+
+    def fence():
+        if cuda:
+            torch.cuda.synchronize(loader.device)
+
+    stats = {"steps_run": 0, "saves": 0, "data_s": 0.0, "ckpt_s": 0.0}
+
+    def save(force: bool = False) -> None:
+        fence()
+        t = time.perf_counter()
+        if ckpt.save(state, force=force):
+            stats["saves"] += 1
+        stats["ckpt_s"] += time.perf_counter() - t
+
+    t_start = time.perf_counter()
+    done = int(state.step)
+    metrics: Dict[str, Any] = {}
+    epoch = 0
+    while done < steps:
+        batches = prefetch(loader.epoch(epoch), size=2)
+        while True:
+            t = time.perf_counter()
+            batch = next(batches, None)
+            stats["data_s"] += time.perf_counter() - t
+            if batch is None:
+                break
+            state, metrics = step_fn(state, batch)
+            stats["steps_run"] += 1
+            done = int(metrics["step"])
+            if done % 5 == 0 or done == steps:
+                log(f"step {done} loss {float(metrics['loss']):.4f}")
+            if done % save_every == 0:
+                save()
+            if done >= steps:
+                break
+        batches.close()
+        epoch += 1
+    save(force=True)  # final save regardless of interval
+    fence()
+    stats.update(done=done, wall_s=time.perf_counter() - t_start, last_metrics=metrics)
+    return stats
+
+
+def export_final(checkpoint_dir: str, done: int,
+                 environ: Optional[Dict[str, str]] = None) -> Optional[str]:
+    """When the operator injected MODEL_EXPORT_URI, push the final step's
+    checkpoint directory (only that one: retention keeps up to three, and
+    consumers want one model, not a history) through the export providers.
+    Process 0 only. Returns the uri exported to, or None."""
+    from training_operator_tpu_torch.export import upload
+
+    e = os.environ if environ is None else environ
+    uri = e.get("MODEL_EXPORT_URI")
+    if not uri or int(e.get("PROCESS_ID", "0")) != 0:
+        return None
+    final_dir = os.path.join(checkpoint_dir, str(done))
+    if not os.path.isdir(final_dir):
+        raise SystemExit(f"export: final checkpoint dir {final_dir} not found; "
+                         "refusing to upload the whole retention history")
+    return upload(final_dir, uri)
+
+
+def standalone_config(seq_len: int) -> TransformerConfig:
+    """The trainer image's model: the JAX example's small decoder."""
+    return TransformerConfig(vocab_size=4096, d_model=256, n_layers=4, n_heads=8,
+                             d_ff=688, max_seq_len=seq_len)
+
+
+def main(argv=None) -> TrainState:
+    ap = argparse.ArgumentParser(prog="python -m training_operator_tpu_torch.trainer.standalone")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--checkpoint-dir",
+                    default=os.path.join(tempfile.gettempdir(), "trainer-ckpt"))
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    pid, nproc = process_shard()
+    if nproc > 1:
+        raise NotImplementedError(
+            f"NUM_PROCESSES={nproc}: the multi-process trainer needs the "
+            "torch-distributed bootstrap of the sharding slice (ROADMAP item A10)"
+        )
+    device = resolve_device(args.device)
+    config = standalone_config(args.seq_len)
+    optimizer = make_optimizer(total_steps=args.steps)
+    # Auto-resume whenever checkpoints exist: a preempted pod restarts with
+    # the same command, so requiring --resume would turn every preemption
+    # into a crash loop. --resume stays for explicitness.
+    have_ckpt = os.path.isdir(args.checkpoint_dir) and any(
+        name.isdigit() for name in os.listdir(args.checkpoint_dir)
+    )
+    if args.resume or have_ckpt:
+        state = restore_into_mesh(args.checkpoint_dir, config, optimizer, device=device)
+        print("resumed at step", state.step)
+    else:
+        state = init_train_state(config, optimizer, device=device)
+
+    dataset = TokenDataset.synthetic(config.vocab_size, args.seq_len,
+                                     num_rows=args.batch_size * 8,
+                                     process_id=pid, num_processes=nproc)
+    loader = DataLoader(dataset, args.batch_size, device=device)
+    ckpt = Checkpointer(args.checkpoint_dir, save_interval_steps=10)
+    stats = train_loop(config, optimizer, state, loader, args.steps, ckpt)
+    ckpt.close()
+    exported = export_final(args.checkpoint_dir, stats["done"])
+    if exported:
+        print("exporting to", exported)
+    print("done at step", stats["done"])
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -138,6 +138,53 @@ def init_train_state(config: TransformerConfig, optimizer: AdamW,
                       opt_state=optimizer.init(dict(model.named_parameters())))
 
 
+def template_train_state(config: TransformerConfig, optimizer: AdamW,
+                         device=None) -> TrainState:
+    """A zero-filled TrainState, the checkpoint-restore target: no generator
+    and no init compute (a restore overwrites every value; only shapes,
+    dtypes and the device matter). On the card unless `device` says
+    otherwise."""
+    device = resolve_device(device)
+    model = Transformer(config, device)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+    return TrainState(step=0, model=model,
+                      opt_state=optimizer.init(dict(model.named_parameters())))
+
+
+def state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The flat state dict of a TrainState: `step` and the AdamW `count` as
+    0-d int64 CPU tensors, and `params.<name>`, `mu.<name>`, `nu.<name>` for
+    every parameter. The tensors are the state's own (no copies), so loading
+    into this dict in place fills the state (`load_state_dict`)."""
+    out = {"step": torch.tensor(state.step, dtype=torch.int64),
+           "count": torch.tensor(state.opt_state.count, dtype=torch.int64)}
+    for name, p in state.model.named_parameters():
+        out["params." + name] = p.detach()
+        out["mu." + name] = state.opt_state.mu[name]
+        out["nu." + name] = state.opt_state.nu[name]
+    return out
+
+
+@torch.no_grad()
+def load_state_dict(state: TrainState, flat: Dict[str, torch.Tensor]) -> TrainState:
+    """Copies a flat state dict (as `state_dict` lays it out) into `state`,
+    on the state's device and dtypes; every key must be present."""
+    own = state_dict(state)
+    if set(own) != set(flat):
+        raise ValueError(f"state dict keys differ: missing {sorted(set(own) - set(flat))}, "
+                         f"unexpected {sorted(set(flat) - set(own))}")
+    for key, dst in own.items():
+        # A dict from `state_dict(state)` that was loaded in place already
+        # holds the state's own tensors.
+        if key not in ("step", "count") and dst.data_ptr() != flat[key].data_ptr():
+            dst.copy_(flat[key])
+    state.step = int(flat["step"])
+    state.opt_state.count = int(flat["count"])
+    return state
+
+
 def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None):
     """Returns `step(state, batch) -> (state, metrics)`: loss, gradient,
     clip + AdamW in place. Metrics: `loss`, `grad_norm` (of the raw
@@ -152,7 +199,7 @@ def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None):
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        loss = loss_fn(model, batch)
+        loss = loss_fn(model, batch, config)
         loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         grad_norm = optimizer.update(grads, state.opt_state, params)
