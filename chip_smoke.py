@@ -42,6 +42,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             the same arguments. Prints the scratch disk's free space first,
             and seconds and bytes per save, wall tokens/s, data_pct and
             ckpt_pct; the temporary directories are removed at the end.
+6. mesh     the sharded trainer as a world of one NCCL rank, bootstrapped
+            from the operator's env (COORDINATOR_ADDRESS=127.0.0.1, a free
+            COORDINATOR_PORT, NUM_PROCESSES=1, PROCESS_ID=0,
+            TPU_MESH_AXES=fsdp=1,tensor=1) through distributed.initialize,
+            mesh_from_env and shard_model (init_train_state(..., mesh)): the
+            flagship at full width as in phase 4, 1 warm-up step and 5 timed
+            steps, 12/12/12 launches per step. The unsharded make_train_step
+            runs the same parameters and batches first: the sharded step-0
+            loss within 1e-5 relative, and after two steps every parameter
+            and every AdamW mu within 1e-5 relative in Frobenius norm (the
+            optimizer has warmup_steps=1; step 1 runs at lr 0, so only step 2
+            moves the parameters). Prints ms/step, tokens/s and peak memory
+            beside phase 4's. Then the trainer entry as a subprocess under
+            the same env (a new port) for 4 steps with a save, relaunched for
+            6: it must resume at step 4. Ends with distributed.shutdown().
+7. dryrun   graft_entry.dryrun_multichip(8) on the host CPU: 8 gloo
+            processes, each pass's sharded loss within 5e-3 of the
+            single-process loss; a CPU phase, its seconds are host seconds.
 
 The last lines are the `kernels` JSON line, the card's name and power limit,
 and `{"ok": true, "device": {...}}`.
@@ -74,6 +92,10 @@ inputs:
   state's (the same parameters, batch and kernels: any difference would be
   the card's summation order, which the kernels fix); the graft entry's
   loss within 1e-6 of loss_fn on the same arguments.
+- mesh: 1e-5 relative. A world of one runs the unsharded path's products
+  and kernels on the same values; only the vocab-parallel logsumexp (max,
+  exp, sum and log written out) and the copies of the size-1 collectives
+  differ from it, all in fp32.
 """
 
 import dataclasses
@@ -269,6 +291,142 @@ def run_loop(config, batch, seq, card):
         shutil.rmtree(export_dir, ignore_errors=True)
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+MESH_ENV = {"COORDINATOR_ADDRESS": "127.0.0.1", "NUM_PROCESSES": "1", "PROCESS_ID": "0",
+            "TPU_MESH_AXES": "fsdp=1,tensor=1"}
+
+
+def rel_frobenius(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def run_mesh(config, batch, seq, card, phase4) -> dict:
+    """Phase 6; see the module docstring. Raises on any failed check and
+    returns the launch counts of its sharded steps."""
+    import torch
+
+    from training_operator_tpu_torch.trainer import distributed, flash
+    from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset
+    from training_operator_tpu_torch.trainer.mesh import mesh_from_env, mesh_shape
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    saved_env = {k: os.environ.get(k) for k in (*MESH_ENV, "COORDINATOR_PORT")}
+    os.environ.update(MESH_ENV, COORDINATOR_PORT=str(free_port()))
+    try:
+        device = distributed.initialize()
+        mesh = mesh_from_env(device.type)
+        log(f"mesh: world of {torch.distributed.get_world_size()} "
+            f"({torch.distributed.get_backend()}) on {device}, mesh {mesh_shape(mesh)}")
+        optimizer = make_optimizer(warmup_steps=1, total_steps=100)
+        dataset = TokenDataset.synthetic(config.vocab_size, seq, num_rows=batch * 4, seed=0)
+        loader = DataLoader(dataset, batch_size=batch, shuffle=True, seed=0, mesh=mesh)
+        batches = [b for _, b in zip(range(6), loader.epoch(0))]
+        batches += [b for _, b in zip(range(6 - len(batches)), loader.epoch(1))]
+
+        # The unsharded step on the same parameters and the first two
+        # batches; its parameters and mu after step 2 go to the host.
+        ref = init_train_state(config, optimizer)
+        ref_step = make_train_step(config, optimizer)
+        ref, m = ref_step(ref, batches[0])
+        ref_loss = m["loss"].item()
+        ref, _ = ref_step(ref, batches[1])
+        want = {n: (p.detach().cpu(), ref.opt_state.mu[n].cpu())
+                for n, p in ref.model.named_parameters()}
+        del ref, ref_step, m
+        torch.cuda.empty_cache()
+
+        state = init_train_state(config, optimizer, mesh=mesh)
+        step_fn = make_train_step(config, optimizer, mesh=mesh)
+        per_step = {"flash_fwd": config.n_layers, "flash_bwd_dq": config.n_layers,
+                    "flash_bwd_dkv": config.n_layers}
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launches()
+        times = []
+        for i, data in enumerate(batches):
+            before = dict(flash.launches)
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            state, metrics = step_fn(state, data)
+            end.record()
+            loss = metrics["loss"].item()
+            ms = start.elapsed_time(end)
+            grew = {n: flash.launches[n] - before[n] for n in per_step}
+            if grew != per_step:
+                raise AssertionError(f"mesh step {i}: launches grew by {grew}, "
+                                     f"expected {per_step}")
+            if not torch.isfinite(metrics["loss"]) or not torch.isfinite(metrics["grad_norm"]):
+                raise AssertionError(f"mesh step {i}: non-finite loss or grad norm: {metrics}")
+            if i > 0:
+                times.append(ms)
+            log(f"mesh: step {i} loss {loss:.6f} grad_norm {metrics['grad_norm'].item():.6f} "
+                f"{ms:.2f} ms device" + (" (warm-up)" if i == 0 else ""))
+            if i == 0 and not abs(loss - ref_loss) <= 1e-5 * abs(ref_loss):
+                raise AssertionError(f"mesh step-0 loss {loss} vs unsharded {ref_loss}")
+            if i == 1:
+                errs = {}
+                for n, p in state.model.named_parameters():
+                    wp, wmu = want[n]
+                    errs[n] = max(rel_frobenius(p.detach(), wp.to(p.device)),
+                                  rel_frobenius(state.opt_state.mu[n], wmu.to(p.device)))
+                worst = max(errs, key=errs.get)
+                if not errs[worst] <= 1e-5:
+                    raise AssertionError(f"after two steps, sharded vs unsharded: {errs}")
+                log(f"mesh: after two steps every parameter and mu within 1e-5 of the "
+                    f"unsharded step (worst {worst} {errs[worst]:.3e}); step-0 loss "
+                    f"{ref_loss:.6f} unsharded")
+                del want
+        launches = dict(flash.launches)
+        step_ms = sum(times) / len(times)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"mesh: {step_ms:.2f} ms/step (mean of {len(times)}; phase 4 "
+            f"{phase4['step_ms']:.2f}), {batch * seq / (step_ms / 1e3):.1f} tokens/s (phase 4 "
+            f"{phase4['tokens_s']:.1f}), peak memory {peak:.2f} GB (phase 4 "
+            f"{phase4['peak_gb']:.2f}), launches {launches} on {card}")
+        del state, step_fn, batches, loader, metrics
+        torch.cuda.empty_cache()
+
+        # The trainer entry under the operator's env, then relaunched.
+        ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-mesh-ckpt-")
+        try:
+            for steps, want_lines in ((4, ["done at step 4"]),
+                                      (6, ["resumed at step 4", "done at step 6"])):
+                env = {**os.environ, "COORDINATOR_PORT": str(free_port())}
+                env.pop("MODEL_EXPORT_URI", None)
+                t = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-m", "training_operator_tpu_torch.trainer.standalone",
+                     "--steps", str(steps), "--checkpoint-dir", ckpt_dir],
+                    env=env, capture_output=True, text=True, timeout=300)
+                lines = proc.stdout.splitlines()
+                if proc.returncode != 0 or not all(w in lines for w in want_lines):
+                    raise AssertionError(f"trainer entry --steps {steps}: rc {proc.returncode}, "
+                                         f"stdout {lines}, stderr {proc.stderr[-2000:]}")
+                log(f"mesh: trainer entry --steps {steps} in {time.perf_counter() - t:.1f} s: "
+                    + " | ".join(lines))
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        distributed.shutdown()
+        return launches
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def main() -> int:
     import torch
 
@@ -396,9 +554,11 @@ def main() -> int:
     fps = bench.flops_per_step(config, n_matmul, batch, seq)
     mfu = fps / (step_ms / 1e3) / bench.PEAK_BF16_FLOPS["H100"]
     train_launches = dict(flash.launches)
+    phase4 = {"step_ms": step_ms, "tokens_s": tokens_s,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"train: {step_ms:.2f} ms/step (mean of {len(times)}), {tokens_s:.1f} tokens/s, "
         f"MFU {mfu:.4f} of 989 TFLOP/s bf16, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {train_launches} "
+        f"{phase4['peak_gb']:.2f} GB, launches {train_launches} "
         f"on {card}")
 
     # The earlier path: one step with every layer under remat "full".
@@ -419,7 +579,20 @@ def main() -> int:
     # 5. loop
     run_loop(config, batch, seq, card)
 
-    # 6. report
+    # 6. mesh
+    mesh_launches = run_mesh(config, batch, seq, card, phase4)
+
+    # 7. dryrun, on the host CPU
+    from training_operator_tpu_torch import graft_entry
+
+    t = time.perf_counter()
+    log("dryrun: graft_entry.dryrun_multichip(8), 8 gloo processes on the host CPU "
+        "(CPU numbers, not the card's):")
+    passes = graft_entry.dryrun_multichip(8)
+    log(f"dryrun: {len(passes)} passes with parity in {time.perf_counter() - t:.1f} s "
+        f"host wall (CPU)")
+
+    # 8. report
     sources = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",
                "flash_bwd_dkv": "flash_bwd_dkv.cu"}
     replaces = {
@@ -442,6 +615,7 @@ def main() -> int:
             "source": f"training_operator_tpu_torch/trainer/csrc/{sources[name]}",
             "replaces": replaces[name],
             "launches": train_launches[name],
+            "launches_mesh": mesh_launches[name],
             "max_abs_err": err_of[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

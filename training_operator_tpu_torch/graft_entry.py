@@ -1,22 +1,41 @@
-"""Graft entry point of the port, single-device half.
+"""Graft entry points of the port.
 
-Counterpart of `entry()` in the repo's `__graft_entry__.py`: the forward and
-loss of the tiny decoder, as a function and its example arguments. The
-multi-chip dry run (`dryrun_multichip`) waits for the sharding slice
-(ROADMAP item A10).
+Counterpart of the repo's `__graft_entry__.py`: `entry()`, the forward and
+loss of the tiny decoder as a function and its example arguments, and
+`dryrun_multichip(n)`, the full sharded train step run once on n-process
+meshes, each pass held to the single-process loss of the same parameters
+and batch (`_run_gate_pass`, the JAX gate). The n processes are CPU
+processes over gloo on this host (distributed.spawn): the gate checks the
+sharded math, not a card.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Dict, List
+
 import torch
 
+from training_operator_tpu_torch.trainer import distributed
+from training_operator_tpu_torch.trainer.mesh import (
+    MeshSpec,
+    build_mesh,
+    mesh_from_env,
+    mesh_shape,
+    shard_batch,
+)
 from training_operator_tpu_torch.trainer.model import (
     TransformerConfig,
     init_params,
     loss_fn,
     resolve_device,
 )
-from training_operator_tpu_torch.trainer.train import make_example_batch
+from training_operator_tpu_torch.trainer.train import (
+    init_train_state,
+    make_example_batch,
+    make_optimizer,
+    make_train_step,
+)
 
 
 def _tiny_config(vocab: int = 256, seq: int = 128) -> TransformerConfig:
@@ -37,3 +56,92 @@ def entry(device=None):
         return loss_fn(model, batch, config)
 
     return fn, (model, batch)
+
+
+def _run_gate_pass(label: str, config: TransformerConfig, mesh, seed: int,
+                   batch_size: int = 4, seq: int = 128, rtol: float = 5e-3) -> Dict:
+    """One dry-run pass in every rank of a CPU world: the full sharded train
+    step on `mesh`, whose loss must match the same parameters and batch
+    evaluated unsharded in this process (rtol 5e-3, the JAX gate): a missing
+    sum or a shard counted twice fails it, where `loss > 0` would not."""
+    cpu = torch.device("cpu")
+    optimizer = make_optimizer(total_steps=10)
+    batch = make_example_batch(config, batch=batch_size, seq=seq,
+                               generator=torch.Generator().manual_seed(seed), device=cpu)
+    with torch.no_grad():
+        full = init_params(config, torch.Generator().manual_seed(seed), cpu)
+        ref_loss = loss_fn(full, batch, config).item()
+    del full
+    state = init_train_state(config, optimizer, torch.Generator().manual_seed(seed), cpu, mesh)
+    step = make_train_step(config, optimizer, device=cpu, mesh=mesh)
+    state, metrics = step(state, shard_batch(batch, mesh))
+    loss = metrics["loss"].item()
+    if not (loss == loss and loss > 0 and ref_loss == ref_loss and ref_loss > 0):
+        raise AssertionError(f"{label}: bad loss {loss} or reference loss {ref_loss}")
+    if abs(loss - ref_loss) > rtol * abs(ref_loss):
+        raise AssertionError(
+            f"{label}: sharded loss {loss:.6f} != single-process loss {ref_loss:.6f} "
+            f"(rtol {rtol}): the mesh compute is WRONG, not just slow")
+    return {"label": label, "mesh": mesh_shape(mesh), "loss": loss, "ref_loss": ref_loss}
+
+
+def _pass1_axes(n: int) -> Dict[str, int]:
+    """The JAX pass 1 factorization of n over (tensor, sequence, fsdp,
+    data), with `sequence` folded into `data` until sequence parallelism is
+    ported (ROADMAP item 11)."""
+    axes: Dict[str, int] = {}
+    for name in ("tensor", "sequence", "fsdp", "data"):
+        if n % 2 == 0 and name != "data":
+            axes[name] = 2
+            n //= 2
+        elif n > 1 and name == "data":
+            axes[name] = n
+            n = 1
+    seq = axes.pop("sequence", 1)
+    if seq > 1:
+        axes["data"] = axes.get("data", 1) * seq
+    return axes
+
+
+def _dryrun_rank(n: int) -> List[Dict]:
+    """The dry-run passes, in one rank of an n-process world."""
+    passes = [_run_gate_pass(f"dryrun_multichip({n})", _tiny_config(seq=128),
+                             build_mesh(MeshSpec(_pass1_axes(n)), "cpu"), seed=0)]
+    if n % 8 == 0:
+        # Pass 3, multi-slice data parallelism from the operator's
+        # multi-slice env: `data` spans the slices, fsdp/tensor stay inside.
+        ms_env = {"TPU_NUM_SLICES": "2", "TPU_MESH_AXES": "data=2,fsdp=2,tensor=2",
+                  "MEGASCALE_NUM_SLICES": "2"}
+        saved = {k: os.environ.get(k) for k in ms_env}
+        os.environ.update(ms_env)
+        try:
+            mesh3 = mesh_from_env("cpu")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if mesh_shape(mesh3)["data"] != 2:
+            raise AssertionError(f"multi-slice mesh {mesh_shape(mesh3)}: data is not 2")
+        passes.append(_run_gate_pass(f"dryrun_multichip({n}) multi-slice dp",
+                                     _tiny_config(seq=128), mesh3, seed=2))
+    return passes
+
+
+def dryrun_multichip(n_devices: int) -> List[Dict]:
+    """The full sharded train step, once, on n-process meshes of gloo CPU
+    processes: pass 1 (data/fsdp/tensor) and, when n divides by 8, pass 3
+    (multi-slice dp from TPU_MESH_AXES=data=2,fsdp=2,tensor=2). Each pass's
+    loss must match the single-process loss (rtol 5e-3); any failure
+    raises. Pass 2 (pipeline x expert x tensor) waits for ROADMAP items
+    12-13 and is reported as not run. Prints one line per pass and returns
+    rank 0's results."""
+    passes = distributed.spawn(_dryrun_rank, n_devices, (n_devices,))[0]
+    for p in passes:
+        print(f"{p['label']}: mesh={p['mesh']} loss={p['loss']:.4f} "
+              f"(parity ok, ref {p['ref_loss']:.4f})")
+    if n_devices % 8 == 0:
+        print(f"dryrun_multichip({n_devices}) pp/ep: not run, waits for ROADMAP items 12-13 "
+              "(pipeline and expert parallelism)")
+    return passes

@@ -1,10 +1,11 @@
-"""The trainer runtime on one NVIDIA card: the flagship decoder, its flash
+"""The trainer runtime on NVIDIA cards: the flagship decoder, its flash
 attention kernels, the AdamW train step, the token data loader, the
-checkpointer and the trainer loop (standalone.py).
+checkpointer, the trainer loop (standalone.py), and the mesh that shards
+them over processes (mesh.py, distributed.py, collectives.py).
 
-Counterpart of training_operator_tpu/trainer (without the mesh, which is not
-ported yet). Entry points run on the card unless the caller passes
-`device="cpu"`.
+Counterpart of training_operator_tpu/trainer (its fsdp and tensor axes;
+sequence, pipeline and expert parallelism are not ported yet). Entry points
+run on the card unless the caller passes `device="cpu"`.
 """
 
 from training_operator_tpu_torch.trainer.model import TransformerConfig, init_params, forward, loss_fn

@@ -146,13 +146,15 @@ def _kernel_family(name: str) -> str:
 
 
 def profile_train_step(config: TransformerConfig, batch: int, seq: int,
-                       steps: int = 2, top: int = 30, device=None) -> Dict[str, Any]:
+                       steps: int = 2, top: int = 30, device=None, mesh=None) -> Dict[str, Any]:
     """Where one train step's device time goes: torch.profiler over `steps`
     steps after one warm-up step; device time per kernel family and the top
     kernels by name, the share of the window the device was idle, and the
-    forward / backward / optimizer phases by subtraction (CUDA events)."""
+    forward / backward / optimizer phases by subtraction (CUDA events).
+    With `mesh`, the step sharded on it (this rank's rows of the batch)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from training_operator_tpu_torch.trainer.mesh import shard_batch
     from training_operator_tpu_torch.trainer.model import loss_fn
     from training_operator_tpu_torch.trainer.train import (
         init_train_state,
@@ -165,9 +167,11 @@ def profile_train_step(config: TransformerConfig, batch: int, seq: int,
     if device.type != "cuda":
         raise RuntimeError("profile_train_step measures the card; no CUDA device given")
     optimizer = make_optimizer(total_steps=steps + 2)
-    state = init_train_state(config, optimizer, device=device)
-    step_fn = make_train_step(config, optimizer, device=device)
+    state = init_train_state(config, optimizer, device=device, mesh=mesh)
+    step_fn = make_train_step(config, optimizer, device=device, mesh=mesh)
     data = make_example_batch(config, batch, seq, device=device)
+    if mesh is not None:
+        data = shard_batch(data, mesh)
     state, _ = step_fn(state, data)
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -216,6 +220,28 @@ def profile_train_step(config: TransformerConfig, batch: int, seq: int,
         "families_ms_per_step": families,
         "top_kernels_ms_per_step": [[name[:120], ms / steps] for name, ms in ranked],
     }
+
+
+def profile_mesh_step(config: TransformerConfig, batch: int, seq: int) -> Dict[str, Any]:
+    """`profile_train_step` unsharded, then sharded on the mesh
+    fsdp=1,tensor=1 of a world of one NCCL rank (a file store in a
+    temporary directory): what the sharded path costs on one card."""
+    import tempfile
+
+    from training_operator_tpu_torch.trainer import distributed
+    from training_operator_tpu_torch.trainer.mesh import MeshSpec, build_mesh
+
+    out = {"unsharded": profile_train_step(config, batch, seq)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize({"NUM_PROCESSES": "1", "PROCESS_ID": "0"},
+                               init_method=f"file://{tmp}/store")
+        try:
+            mesh = build_mesh(MeshSpec({"fsdp": 1, "tensor": 1}), "cuda")
+            out["sharded_world_of_one"] = profile_train_step(config, batch, seq, mesh=mesh)
+        finally:
+            distributed.shutdown()
+    return out
 
 
 def attention_work(batch: int, seq: int, heads: int, head_dim: int, causal: bool
@@ -529,7 +555,9 @@ def main(argv=None) -> None:
     shape, on the card; one JSON object on stdout. With `--attention`, only
     the kernels: `bench_attention` at the flagship shape and
     `attention_sweep`; with `--loss-gap`, only `loss_gaps`; with `--loop`,
-    `run_trainer_bench` (step, kernels, data path, end-to-end loop)."""
+    `run_trainer_bench` (step, kernels, data path, end-to-end loop); with
+    `--mesh`, the profile of the unsharded step and of the step sharded on
+    a world of one NCCL rank (fsdp=1,tensor=1), in that order."""
     import argparse
     import json
     import subprocess
@@ -541,6 +569,8 @@ def main(argv=None) -> None:
                         help="flash vs plain-attention forward loss over six batches only")
     parser.add_argument("--loop", action="store_true",
                         help="run_trainer_bench: step, kernels, data path and the loop")
+    parser.add_argument("--mesh", action="store_true",
+                        help="profile the step unsharded and sharded on a world of one")
     args = parser.parse_args(argv)
     config, batch, seq = flagship_config()
     card = subprocess.run(
@@ -549,6 +579,8 @@ def main(argv=None) -> None:
     ).stdout.strip()
     if args.loss_gap:
         out = {"card": card, "loss_gaps": loss_gaps()}
+    elif args.mesh:
+        out = {"card": card, **profile_mesh_step(config, batch, seq)}
     elif args.loop:
         out = {"card": card, **run_trainer_bench()}
     elif args.attention:

@@ -25,6 +25,15 @@ the same calls):
 A restore loads in place into a template's tensors, so it lands on the
 template's device and dtypes. Saves are synchronous: `save` returns after
 the files are written and synced.
+
+Under a process group (JAX `checkpoint.py:119-135`) every rank makes the
+same calls: DCP writes each rank's shards of a sharded state (its DTensors,
+train.state_dict) into one step directory on a filesystem all ranks share,
+and restores into any template, sharded on another mesh or not sharded, by
+resharding on read (`restore_into_mesh`, the elastic resize path). The
+steps known to the manager are rank 0's reading of the disk, broadcast, so
+every rank takes the same save decisions; rank 0 alone renames, deletes and
+recovers, each behind a barrier.
 """
 
 from __future__ import annotations
@@ -35,8 +44,11 @@ import shutil
 import warnings
 from typing import List, Optional
 
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
+from torch.distributed.device_mesh import DeviceMesh
 
+from training_operator_tpu_torch.trainer.distributed import broadcast_object, is_main
 from training_operator_tpu_torch.trainer.model import TransformerConfig
 from training_operator_tpu_torch.trainer.train import (
     TrainState,
@@ -63,14 +75,26 @@ def _single_process():
         yield
 
 
+def _dcp_context():
+    return contextlib.nullcontext() if dist.is_initialized() else _single_process()
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
 class Checkpointer:
     def __init__(self, directory: str, max_to_keep: Optional[int] = 3,
                  save_interval_steps: int = 1):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
-        self._recover_interrupted_overwrites()
-        os.makedirs(self.directory, exist_ok=True)  # as orbax's manager does
+        if is_main():
+            self._recover_interrupted_overwrites()
+            os.makedirs(self.directory, exist_ok=True)  # as orbax's manager does
+        _barrier()
+        self._tmp_tag = broadcast_object(os.getpid())  # names rank 0's partial writes
         self._steps: List[int] = []
         self.reload()
 
@@ -103,12 +127,12 @@ class Checkpointer:
                     shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
 
     def reload(self) -> None:
-        """Re-reads the steps on the disk, in step order."""
+        """Re-reads the steps on the disk, in step order (rank 0 reads)."""
         steps = []
-        if os.path.isdir(self.directory):
+        if is_main() and os.path.isdir(self.directory):
             steps = [int(n) for n in os.listdir(self.directory)
                      if n.isdigit() and os.path.isfile(os.path.join(self.directory, n, ".metadata"))]
-        self._steps = sorted(steps)
+        self._steps = broadcast_object(sorted(steps))
 
     def all_steps(self) -> List[int]:
         return list(self._steps)
@@ -130,24 +154,30 @@ class Checkpointer:
         docstring). Returns whether a checkpoint was written."""
         step = int(state.step) if step is None else step
         stale = None
-        if step in self._steps:
-            src = self._step_dir(step)
-            stale = self.directory + f".stale.{step}"
-            if os.path.isdir(stale):  # leftover from an interrupted overwrite
-                shutil.rmtree(stale)
-            if os.path.isdir(src):
-                os.rename(src, stale)
-            else:
-                stale = None
+        overwrite = step in self._steps
+        if overwrite:
+            if is_main():
+                src = self._step_dir(step)
+                stale = self.directory + f".stale.{step}"
+                if os.path.isdir(stale):  # leftover from an interrupted overwrite
+                    shutil.rmtree(stale)
+                if os.path.isdir(src):
+                    os.rename(src, stale)
+                else:
+                    stale = None
+            _barrier()
             self.reload()
         saved = self._write(state, step, force)
-        if stale is not None:
-            if saved:
-                shutil.rmtree(stale, ignore_errors=True)
-            else:
-                # Declined (an unforced off-interval write): the moved-aside
-                # copy is still the only one, so put it back.
-                os.rename(stale, self._step_dir(step))
+        if overwrite:
+            if stale is not None:
+                if saved:
+                    shutil.rmtree(stale, ignore_errors=True)
+                else:
+                    # Declined (an unforced off-interval write): the moved-aside
+                    # copy is still the only one, so put it back.
+                    os.rename(stale, self._step_dir(step))
+            _barrier()
+            if not saved:
                 self.reload()
         return saved
 
@@ -156,17 +186,21 @@ class Checkpointer:
             return False
         if step in self._steps:
             raise FileExistsError(f"checkpoint for step {step} already exists")
-        tmp = os.path.join(self.directory, f"{step}.tmp-{os.getpid()}")
-        with _single_process():
+        tmp = os.path.join(self.directory, f"{step}.tmp-{self._tmp_tag}")
+        with _dcp_context():
             dcp.save(state_dict(state), checkpoint_id=tmp)
-        os.rename(tmp, self._step_dir(step))
-        _fsync_dir(self.directory)
+        _barrier()  # every rank's files are written
         self._steps.append(step)
+        drop = []
         if self.max_to_keep is not None and len(self._steps) > self.max_to_keep:
             drop = self._steps[: len(self._steps) - self.max_to_keep]
             self._steps = self._steps[len(drop):]
+        if is_main():
+            os.rename(tmp, self._step_dir(step))
+            _fsync_dir(self.directory)
             for old in drop:
                 shutil.rmtree(self._step_dir(old), ignore_errors=True)
+        _barrier()
         return True
 
     def step_bytes(self, step: int) -> int:
@@ -182,7 +216,7 @@ class Checkpointer:
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         flat = state_dict(template)
-        with _single_process():
+        with _dcp_context():
             dcp.load(flat, checkpoint_id=self._step_dir(step))
         return load_state_dict(template, flat)
 
@@ -191,16 +225,13 @@ class Checkpointer:
 
 
 def restore_into_mesh(directory: str, config: TransformerConfig, optimizer,
-                      mesh=None, step: Optional[int] = None, device=None) -> TrainState:
-    """Restore into a zero-filled template (no init compute): the resume
-    path after a preemption. The JAX version lays the template out on a new
-    mesh so that a resized job reshards on read; the port has no mesh yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "restore_into_mesh onto a mesh waits for the sharding slice "
-            "(ROADMAP item A10); pass mesh=None"
-        )
-    template = template_train_state(config, optimizer, device)
+                      mesh: Optional[DeviceMesh] = None, step: Optional[int] = None,
+                      device=None) -> TrainState:
+    """Restore into a zero-filled template (no init compute) laid out on
+    `mesh`, the new mesh of a resized job, or unsharded without one: the
+    resume path after a preemption or an elastic resize. DCP reshards on
+    read, whatever mesh wrote the checkpoint."""
+    template = template_train_state(config, optimizer, device, mesh)
     ckpt = Checkpointer(directory)
     try:
         return ckpt.restore(template, step=step)

@@ -4,6 +4,14 @@ Counterpart of training_operator_tpu/trainer/data.py. The shuffle is the JAX
 loader's `RandomState(seed + epoch)` permutation, so both loaders yield the
 same batches in the same order, through the numpy gather or the native C++
 prefetcher (training_operator_tpu_torch/native) alike.
+
+Under a mesh (JAX `data.py:76-150`) `batch_size` is the global batch and
+each rank gathers and emits only its rows of it, the slice at its batch
+coordinate over (data, fsdp, expert) (mesh.batch_coordinate): ranks that
+differ only in `tensor` get the same rows, and the union over the batch
+coordinates is the batch the unsharded loader yields. The dataset is then
+the same on every rank; `process_shard` splits it by PROCESS_ID only for
+separate single-process trainers, since a tensor peer is a process too.
 """
 
 from __future__ import annotations
@@ -15,7 +23,10 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from torch.distributed.device_mesh import DeviceMesh
+
 from training_operator_tpu_torch import native
+from training_operator_tpu_torch.trainer.mesh import BATCH_AXES, batch_coordinate
 from training_operator_tpu_torch.trainer.model import resolve_device
 
 
@@ -76,15 +87,28 @@ class DataLoader:
     while the current one is emitted). None takes it where it builds and the
     rows are C-contiguous int32, as the JAX loader does; True requires it
     and raises when it does not build. The batches are the same either
-    way."""
+    way. `mesh`: see the module docstring."""
 
     def __init__(self, dataset: TokenDataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, device=None,
-                 use_native: Optional[bool] = None):
+                 use_native: Optional[bool] = None, mesh: Optional[DeviceMesh] = None):
         if batch_size > len(dataset):
             raise ValueError(
                 f"batch_size {batch_size} exceeds dataset shard of {len(dataset)} rows"
             )
+        # This rank's rows [lo, lo + local) of every global batch.
+        self.local, self.lo = batch_size, 0
+        if mesh is not None:
+            if not drop_last:
+                # A partial tail batch cannot be split over the batch axes;
+                # fail at construction, not mid-epoch.
+                raise ValueError("drop_last=False is incompatible with a sharded mesh")
+            index, count = batch_coordinate(mesh)
+            if batch_size % count:
+                raise ValueError(f"batch_size {batch_size} does not split over the batch "
+                                 f"axes {BATCH_AXES} ({count} shards)")
+            self.local = batch_size // count
+            self.lo = index * self.local
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -109,19 +133,19 @@ class DataLoader:
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
         end = (len(rows) // self.batch_size) * self.batch_size if self.drop_last else len(rows)
-        starts = list(range(0, end, self.batch_size))
+        starts = list(range(self.lo, end, self.batch_size))
         if self.use_native and starts:
             with native.Prefetcher(rows) as pf:
-                pf.submit(order[starts[0] : starts[0] + self.batch_size])
+                pf.submit(order[starts[0] : starts[0] + self.local])
                 for i, start in enumerate(starts):
                     chunk = pf.wait()
                     if i + 1 < len(starts):
                         nxt = starts[i + 1]
-                        pf.submit(order[nxt : nxt + self.batch_size])
+                        pf.submit(order[nxt : nxt + self.local])
                     yield self._emit(chunk)
             return
         for start in starts:
-            yield self._emit(rows[order[start : start + self.batch_size]])
+            yield self._emit(rows[order[start : start + self.local]])
 
     def _emit(self, chunk: np.ndarray) -> Dict[str, torch.Tensor]:
         batch = {

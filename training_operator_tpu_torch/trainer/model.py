@@ -16,17 +16,33 @@ attention, SwiGLU MLP. `remat=True` applies `remat_policy` to each layer
 (`layer_body`, the JAX `make_layer_body`); `remat_head=True` checkpoints the
 head and loss. Mixture-of-experts and pipeline stages are not ported yet and
 raise.
+
+The sharded half (JAX `param_specs` and the mesh paths of `backbone` and
+`loss_fn`): `shard_model(model, mesh)` keeps on each rank the shard of every
+parameter that the JAX `param_specs` puts at its mesh coordinate, and
+`model.mesh` then sends the forward through the collectives of
+collectives.py. Megatron column/row products on `tensor` and the
+complementary dim on `fsdp`, each layer's fsdp shards gathered as it runs
+(and again in a recompute), a vocab-parallel head and loss, and a loss that
+is the global masked mean. The parameters stay plain tensors holding the
+local shard: DTensor op dispatch on a six-axis mesh enumerates placement
+strategies per op (on torch 2.13 the backward of one tiny DTensor parameter
+took seconds), so the placements (`param_placements`) describe the layout
+to the checkpoint (train.state_dict) and take no part in the compute; FSDP2
+would shard the stacked [L] dim and hold DTensors too.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -34,7 +50,14 @@ from torch.utils.checkpoint import (
 )
 
 from training_operator_tpu_torch.trainer.attention import attention, takes_flash
+from training_operator_tpu_torch.trainer.collectives import (
+    all_reduce,
+    copy_to_tensor,
+    gather,
+    reduce_sum,
+)
 from training_operator_tpu_torch.trainer.flash import FLASH_FWD_OP
+from training_operator_tpu_torch.trainer.mesh import AXIS_ORDER, BATCH_AXES, axis_size
 
 
 def resolve_device(device=None) -> torch.device:
@@ -100,22 +123,29 @@ class TransformerConfig:
 LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w3", "w2")
 
 
+def param_shapes(config: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
+    """The full shape of every parameter, by the port's names."""
+    c = config
+    dm, dff, L, V = c.d_model, c.d_ff, c.n_layers, c.vocab_size
+    q_dim, kv_dim = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    layers = {
+        "ln1": (L, dm), "wq": (L, dm, q_dim), "wk": (L, dm, kv_dim),
+        "wv": (L, dm, kv_dim), "wo": (L, q_dim, dm), "ln2": (L, dm),
+        "w1": (L, dm, dff), "w3": (L, dm, dff), "w2": (L, dff, dm),
+    }
+    return {"embed": (V, dm), **{"layers." + n: layers[n] for n in LAYER_PARAMS},
+            "ln_f": (dm,), "lm_head": (dm, V)}
+
+
 class DecoderLayers(nn.Module):
     """Every layer's weights, stacked on a leading [L] axis."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
-        c = config
-        dm, dff, L = c.d_model, c.d_ff, c.n_layers
-        q_dim, kv_dim = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
-        shapes = {
-            "ln1": (L, dm), "wq": (L, dm, q_dim), "wk": (L, dm, kv_dim),
-            "wv": (L, dm, kv_dim), "wo": (L, q_dim, dm), "ln2": (L, dm),
-            "w1": (L, dm, dff), "w3": (L, dm, dff), "w2": (L, dff, dm),
-        }
+        shapes = param_shapes(config)
         for name in LAYER_PARAMS:
             self.register_parameter(
-                name, nn.Parameter(torch.empty(shapes[name], device=device))
+                name, nn.Parameter(torch.empty(shapes["layers." + name], device=device))
             )
 
     def unbind(self) -> List[Dict[str, torch.Tensor]]:
@@ -140,6 +170,8 @@ class Transformer(nn.Module):
         self.layers = DecoderLayers(c, device)
         self.ln_f = nn.Parameter(torch.empty(c.d_model, device=device))
         self.lm_head = nn.Parameter(torch.empty(c.d_model, c.vocab_size, device=device))
+        # Set by shard_model: the parameters then hold this rank's shards.
+        self.mesh: Optional[DeviceMesh] = None
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, tokens)
@@ -191,62 +223,80 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _qkv_products(x, lp, config: TransformerConfig):
-    """norm -> the q, k, v products, as [b, s, heads, head_dim]."""
+def _weight(lp, name: str, mesh: Optional[DeviceMesh]) -> torch.Tensor:
+    """A layer weight, its fsdp shards gathered under a mesh (the [in, out]
+    matrix keeps its tensor shard: the products are column/row parallel)."""
+    if mesh is None:
+        return lp[name]
+    return gather(lp[name], mesh, LAYER_FSDP_DIM[name], ("fsdp",))
+
+
+def _qkv_products(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
+    """norm -> the q, k, v products, as [b, s, heads, head_dim] (this rank's
+    heads under a mesh)."""
     c = config
     b, s, _ = x.shape
     h = _rms_norm(x, lp["ln1"])
-    q = (h @ lp["wq"].to(c.dtype)).reshape(b, s, c.n_heads, c.head_dim)
-    k = (h @ lp["wk"].to(c.dtype)).reshape(b, s, c.n_kv_heads, c.head_dim)
-    v = (h @ lp["wv"].to(c.dtype)).reshape(b, s, c.n_kv_heads, c.head_dim)
+    if mesh is not None:
+        h = copy_to_tensor(h, mesh)
+    q = (h @ _weight(lp, "wq", mesh).to(c.dtype)).reshape(b, s, -1, c.head_dim)
+    k = (h @ _weight(lp, "wk", mesh).to(c.dtype)).reshape(b, s, -1, c.head_dim)
+    v = (h @ _weight(lp, "wv", mesh).to(c.dtype)).reshape(b, s, -1, c.head_dim)
     return q, k, v
 
 
-def _out_projection(attn, lp, config: TransformerConfig):
+def _out_projection(attn, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
     b, s = attn.shape[:2]
-    return attn.reshape(b, s, config.n_heads * config.head_dim) @ lp["wo"].to(config.dtype)
+    out = attn.reshape(b, s, -1) @ _weight(lp, "wo", mesh).to(config.dtype)
+    return out if mesh is None else reduce_sum(out, mesh, ("tensor",))
 
 
-def _attn_block(x, lp, config: TransformerConfig, positions, attn_impl: str):
+def _attn_block(x, lp, config: TransformerConfig, positions, attn_impl: str,
+                mesh: Optional[DeviceMesh] = None):
     """norm -> qkv -> rope -> attention -> output projection."""
     c = config
-    q, k, v = _qkv_products(x, lp, c)
+    q, k, v = _qkv_products(x, lp, c, mesh)
     q = _rope(q, positions, c.rope_theta)
     k = _rope(k, positions, c.rope_theta)
-    return _out_projection(attention(q, k, v, causal=True, impl=attn_impl), lp, c)
+    return _out_projection(attention(q, k, v, causal=True, impl=attn_impl), lp, c, mesh)
 
 
-def _mlp_block(x, lp, config: TransformerConfig):
+def _mlp_block(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
     """norm -> SwiGLU."""
     c = config
     h = _rms_norm(x, lp["ln2"])
-    gate = F.silu(h @ lp["w1"].to(c.dtype))
-    up = h @ lp["w3"].to(c.dtype)
-    return (gate * up) @ lp["w2"].to(c.dtype)
+    if mesh is not None:
+        h = copy_to_tensor(h, mesh)
+    gate = F.silu(h @ _weight(lp, "w1", mesh).to(c.dtype))
+    up = h @ _weight(lp, "w3", mesh).to(c.dtype)
+    out = (gate * up) @ _weight(lp, "w2", mesh).to(c.dtype)
+    return out if mesh is None else reduce_sum(out, mesh, ("tensor",))
 
 
-def decoder_layer(x, lp, config: TransformerConfig, positions, attn_impl: str = "auto"):
+def decoder_layer(x, lp, config: TransformerConfig, positions, attn_impl: str = "auto",
+                  mesh: Optional[DeviceMesh] = None):
     """One pre-norm decoder block on [b, s, d]."""
-    x = x + _attn_block(x, lp, config, positions, attn_impl)
-    return x + _mlp_block(x, lp, config)
+    x = x + _attn_block(x, lp, config, positions, attn_impl, mesh)
+    return x + _mlp_block(x, lp, config, mesh)
 
 
-def _out_and_mlp(x, attn, lp, config: TransformerConfig):
+def _out_and_mlp(x, attn, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
     """The layer after its attention: output projection, residual, MLP."""
-    x = x + _out_projection(attn, lp, config)
-    return x + _mlp_block(x, lp, config)
+    x = x + _out_projection(attn, lp, config, mesh)
+    return x + _mlp_block(x, lp, config, mesh)
 
 
 class _NormQKV(torch.autograd.Function):
     """`_qkv_products` keeping only its inputs for the backward: that
     recomputes the norm (the weight gradients need its output) and none of
     the three products, whose gradients are products with the saved
-    weights."""
+    weights. Under a mesh it takes the gathered weights and sums the norm
+    output's gradient over `tensor` (the f of copy_to_tensor)."""
 
     @staticmethod
-    def forward(ctx, x, ln1, wq, wk, wv, config):
+    def forward(ctx, x, ln1, wq, wk, wv, config, mesh):
         ctx.save_for_backward(x, ln1, wq, wk, wv)
-        ctx.config = config
+        ctx.config, ctx.mesh = config, mesh
         return _qkv_products(x, {"ln1": ln1, "wq": wq, "wk": wk, "wv": wv}, config)
 
     @staticmethod
@@ -263,8 +313,10 @@ class _NormQKV(torch.autograd.Function):
             dws.append((h2.t() @ g2).to(w.dtype))
             d = g2 @ w.to(dtype).t()
             dh = d if dh is None else dh + d
+        if ctx.mesh is not None:
+            all_reduce(dh, ctx.mesh, ("tensor",))
         dx, dln = torch.autograd.grad(h, (xd, lnd), dh.reshape(h.shape))
-        return dx, dln, *dws, None
+        return dx, dln, *dws, None, None
 
 
 def _save_flash_outputs(ctx, op, *args, **kwargs):
@@ -287,9 +339,11 @@ def _save_weight_products(ctx, op, *args, **kwargs):
 _SELECTIVE = {"save_attn": _save_flash_outputs, "save_dots": _save_weight_products}
 
 
-def layer_body(config: TransformerConfig, positions) -> Callable:
+def layer_body(config: TransformerConfig, positions,
+               mesh: Optional[DeviceMesh] = None) -> Callable:
     """`(x, lp) -> x` for one layer with the config's remat policy applied
-    (the JAX `make_layer_body`):
+    (the JAX `make_layer_body`). Under a mesh `lp` holds the local shards,
+    gathered inside the checkpointed region, so a recompute gathers again:
 
     - "full": the whole layer under `checkpoint`; backward recomputes it,
       the flash forward included (2 forward launches per layer and step).
@@ -308,23 +362,24 @@ def layer_body(config: TransformerConfig, positions) -> Callable:
     c = config
     impl = c.attn_impl
     if not c.remat:
-        return lambda x, lp: decoder_layer(x, lp, c, positions, impl)
+        return lambda x, lp: decoder_layer(x, lp, c, positions, impl, mesh)
     policy = c.remat_policy
     if policy == "mlp_only":
         def body(x, lp):
-            x = x + _attn_block(x, lp, c, positions, impl)
-            return x + checkpoint(_mlp_block, x, lp, c, use_reentrant=False)
+            x = x + _attn_block(x, lp, c, positions, impl, mesh)
+            return x + checkpoint(_mlp_block, x, lp, c, mesh, use_reentrant=False)
         return body
     if policy == "save_attn_qkv":
         def body(x, lp):
-            q, k, v = _NormQKV.apply(x, *(lp[n] for n in ("ln1", "wq", "wk", "wv")), c)
+            weights = [_weight(lp, n, mesh) for n in ("wq", "wk", "wv")]
+            q, k, v = _NormQKV.apply(x, lp["ln1"], *weights, c, mesh)
             q = _rope(q, positions, c.rope_theta)
             k = _rope(k, positions, c.rope_theta)
             if takes_flash(q, impl):
                 attn = attention(q, k, v, causal=True, impl=impl)
             else:
                 attn = checkpoint(attention, q, k, v, True, impl, use_reentrant=False)
-            return checkpoint(_out_and_mlp, x, attn, lp, c, use_reentrant=False)
+            return checkpoint(_out_and_mlp, x, attn, lp, c, mesh, use_reentrant=False)
         return body
     if policy != "full" and policy not in _SELECTIVE:
         raise ValueError(f"unknown remat_policy {policy!r}; one of {c.REMAT_POLICIES}")
@@ -332,52 +387,194 @@ def layer_body(config: TransformerConfig, positions) -> Callable:
     if policy in _SELECTIVE:
         kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                  _SELECTIVE[policy])
-    return lambda x, lp: checkpoint(decoder_layer, x, lp, c, positions, impl,
+    return lambda x, lp: checkpoint(decoder_layer, x, lp, c, positions, impl, mesh,
                                     use_reentrant=False, **kwargs)
 
 
 def backbone(model: Transformer, tokens: torch.Tensor,
              config: Optional[TransformerConfig] = None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, D]. `config`
-    overrides the model's own (same shapes; e.g. another attn_impl)."""
+    overrides the model's own (same shapes; e.g. another attn_impl). Under
+    a mesh, tokens and hidden states are this rank's rows of the batch."""
     c = config or model.config
+    mesh = model.mesh
     b, s = tokens.shape
-    x = model.embed.to(c.dtype)[tokens.long()]
+    embed = model.embed
+    if mesh is not None:
+        # The whole table before the row gather, as the JAX backbone
+        # replicates it explicitly.
+        embed = gather(embed, mesh, 1, PARAM_SPECS["embed"][1])
+    x = embed.to(c.dtype)[tokens.long()]
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-    body = layer_body(c, positions)
+    body = layer_body(c, positions, mesh)
     for lp in model.layers.unbind():
         x = body(x, lp)
     return _rms_norm(x, model.ln_f)
 
 
-def _head_logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
-    return x.float() @ lm_head
+def _head_logits(x: torch.Tensor, lm_head: torch.Tensor,
+                 mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """fp32 logits; under a mesh this rank's vocab slice [.., V/tensor]."""
+    if mesh is None:
+        return x.float() @ lm_head
+    return copy_to_tensor(x.float(), mesh) @ gather(lm_head, mesh, 0, ("fsdp",))
 
 
 def forward(model: Transformer, tokens: torch.Tensor,
             config: Optional[TransformerConfig] = None) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V] fp32."""
-    return _head_logits(backbone(model, tokens, config), model.lm_head)
+    """tokens [B, S] -> logits [B, S, V] fp32 (under a mesh: this rank's
+    rows and vocab slice)."""
+    return _head_logits(backbone(model, tokens, config), model.lm_head, model.mesh)
 
 
-def _head_nll(x, lm_head, targets):
-    logits = _head_logits(x, lm_head)
-    logz = torch.logsumexp(logits, dim=-1)
-    target_logit = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+def _head_nll(x, lm_head, targets, mesh: Optional[DeviceMesh] = None):
+    logits = _head_logits(x, lm_head, mesh)
+    if mesh is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        target_logit = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        return logz - target_logit
+    # Vocab-parallel: the logsumexp of the slices' own logsumexps, and the
+    # target's logit from the one slice that holds it. With one slice this
+    # is the unsharded computation bit for bit (exp(0) = 1, log(1) = 0).
+    local = torch.logsumexp(logits, dim=-1)
+    top = local.detach().clone()
+    all_reduce(top, mesh, ("tensor",), dist.ReduceOp.MAX)
+    logz = top + reduce_sum((local - top).exp(), mesh, ("tensor",)).log()
+    width = logits.shape[-1]
+    local = targets.long() - mesh.get_local_rank("tensor") * width
+    inside = (local >= 0) & (local < width)
+    picked = torch.gather(logits, -1, local.clamp(0, width - 1)[..., None])[..., 0]
+    target_logit = reduce_sum(torch.where(inside, picked, 0.0), mesh, ("tensor",))
     return logz - target_logit
 
 
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
             config: Optional[TransformerConfig] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy; `batch` = {tokens, targets, mask}."""
+    """Mean next-token cross-entropy; `batch` = {tokens, targets, mask}.
+    Under a mesh the batch is this rank's rows, and the loss is the masked
+    mean over the global batch on every rank: the sums of nll*mask and of
+    the mask are each summed over the batch axes before the division."""
     config = config or model.config
+    mesh = model.mesh
     x = backbone(model, batch["tokens"], config)
     if config.remat_head:
-        nll = checkpoint(_head_nll, x, model.lm_head, batch["targets"], use_reentrant=False)
+        nll = checkpoint(_head_nll, x, model.lm_head, batch["targets"], mesh,
+                         use_reentrant=False)
     else:
-        nll = _head_nll(x, model.lm_head, batch["targets"])
+        nll = _head_nll(x, model.lm_head, batch["targets"], mesh)
     mask = batch.get("mask")
-    if mask is None:
-        return nll.mean()
-    mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if mesh is None:
+        if mask is None:
+            return nll.mean()
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    total = reduce_sum((nll * mask).sum(), mesh, BATCH_AXES)
+    count = all_reduce(mask.sum(), mesh, BATCH_AXES)
+    return total / torch.clamp(count, min=1.0)
+
+
+# ----------------------------------------------------------------------
+# The sharded half: the JAX param_specs, and the shards they give a rank
+# ----------------------------------------------------------------------
+
+# Per parameter, per tensor dim, the mesh axes that shard it, major first:
+# the JAX `param_specs` (model.py:103-136) as tuples. Megatron TP: q/k/v and
+# w1/w3 column-parallel (output dim on `tensor`), wo/w2 row-parallel (input
+# dim on `tensor`), `fsdp` on the complementary dim; the [L] stack never
+# sharded; the embedding's d over (fsdp, tensor), the head's vocab on
+# `tensor` (sharded logits feed the vocab-parallel loss); norms replicated.
+_COLUMN, _ROW = ((), ("fsdp",), ("tensor",)), ((), ("tensor",), ("fsdp",))
+PARAM_SPECS: Dict[str, Tuple[Tuple[str, ...], ...]] = {
+    "embed": ((), ("fsdp", "tensor")),
+    "layers.ln1": ((), ()),
+    "layers.wq": _COLUMN, "layers.wk": _COLUMN, "layers.wv": _COLUMN,
+    "layers.wo": _ROW,
+    "layers.ln2": ((), ()),
+    "layers.w1": _COLUMN, "layers.w3": _COLUMN,
+    "layers.w2": _ROW,
+    "ln_f": ((),),
+    "lm_head": (("fsdp",), ("tensor",)),
+}
+
+# The dim a layer's [in, out] matrix gathers over fsdp (its spec without [L]).
+LAYER_FSDP_DIM = {name.split(".")[1]: spec.index(("fsdp",)) - 1
+                  for name, spec in PARAM_SPECS.items()
+                  if name.startswith("layers.") and ("fsdp",) in spec}
+
+
+def param_specs(config: TransformerConfig) -> Dict[str, Tuple[Tuple[str, ...], ...]]:
+    """The JAX `param_specs(config)` by the port's parameter names (dense
+    only: the config refuses MoE)."""
+    config.validate()
+    return dict(PARAM_SPECS)
+
+
+def spec_axes(name: str) -> Tuple[str, ...]:
+    """The mesh axes that shard parameter `name`."""
+    return tuple(a for dim in PARAM_SPECS[name] for a in dim)
+
+
+def param_placements(name: str) -> list:
+    """The DTensor placements over AXIS_ORDER of parameter `name`: Shard(d)
+    on each axis that shards dim d, Replicate elsewhere. Where two axes
+    shard one dim (the embedding), AXIS_ORDER lists fsdp before tensor,
+    which is DTensor's major-first order and the JAX spec's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate() for _ in AXIS_ORDER]
+    for dim, axes in enumerate(PARAM_SPECS[name]):
+        for axis in axes:
+            out[AXIS_ORDER.index(axis)] = Shard(dim)
+    return out
+
+
+def local_shard(name: str, full: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """The block of `full` that the JAX sharding of parameter `name` puts at
+    this rank's mesh coordinate."""
+    out = full
+    for dim, axes in enumerate(PARAM_SPECS[name]):
+        index, count = 0, 1
+        for axis in axes:
+            index = index * axis_size(mesh, axis) + mesh.get_local_rank(axis)
+            count *= axis_size(mesh, axis)
+        if full.shape[dim] % count:
+            raise ValueError(f"{name} dim {dim} of size {full.shape[dim]} does not split "
+                             f"over {axes} ({count} shards)")
+        out = out.chunk(count, dim)[index]
+    return out
+
+
+@torch.no_grad()
+def shard_model(model: Transformer, mesh: DeviceMesh) -> Transformer:
+    """Replaces every parameter of an unsharded model by this rank's shard
+    (`local_shard`; a copy, so the full tensors can be freed) and sends the
+    forward through the mesh. The batch given to `loss_fn` is then this
+    rank's rows (mesh.shard_batch)."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"shard_model needs a DeviceMesh (mesh.build_mesh), not {mesh!r}")
+    if model.mesh is not None:
+        raise ValueError("the model is sharded already")
+    # The JAX attention falls back to its unsharded path where the heads do
+    # not split over `tensor`; the port raises.
+    c, tensor = model.config, axis_size(mesh, "tensor")
+    for what, n in (("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads)):
+        if n % tensor:
+            raise ValueError(f"{what}={n} does not split over tensor={tensor}")
+    for name, p in list(model.named_parameters()):
+        owner = model.layers if name.startswith("layers.") else model
+        local = local_shard(name, p.detach(), mesh).clone(memory_format=torch.contiguous_format)
+        setattr(owner, name.split(".")[-1], nn.Parameter(local))
+    model.mesh = mesh
+    return model
+
+
+@torch.no_grad()
+def reduce_gradients(model: Transformer) -> None:
+    """After backward on a sharded model: sums each gradient over the batch
+    axes that do not shard its parameter (the fsdp sums already happened
+    in the gathers' backward), as the data-parallel all-reduce."""
+    mesh = model.mesh
+    for name, p in model.named_parameters():
+        axes = [a for a in BATCH_AXES if a not in spec_axes(name)]
+        all_reduce(p.grad, mesh, axes)

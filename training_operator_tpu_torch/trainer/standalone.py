@@ -1,17 +1,20 @@
 """The trainer-image entry: what runs inside a scheduled job's pod.
 
-Counterpart of examples/trainer_standalone.py, single process:
+Counterpart of examples/trainer_standalone.py:
 
     python -m training_operator_tpu_torch.trainer.standalone [--steps N]
         [--seq-len S] [--batch-size B] [--checkpoint-dir DIR] [--resume]
         [--device cpu]
 
-It reads the bootstrap env the operator injects (PROCESS_ID /
-NUM_PROCESSES, MODEL_EXPORT_URI), resumes from the newest checkpoint
-whenever one exists, runs `train_loop` and exports the final step. It runs
-on the card unless `--device cpu` is given. More than one process
-(NUM_PROCESSES > 1) needs the torch-distributed bootstrap of the sharding
-slice and raises.
+It reads the bootstrap env the operator injects (COORDINATOR_ADDRESS,
+COORDINATOR_PORT, NUM_PROCESSES, PROCESS_ID, TPU_MESH_AXES,
+MODEL_EXPORT_URI). With a coordinator address or more than one process it
+joins the process group (distributed.initialize: one process per card,
+gloo with `--device cpu`), builds the mesh (mesh_from_env) and trains the
+state sharded on it; `--batch-size` is the global batch. It resumes from the
+newest checkpoint whenever one exists, onto this run's mesh, runs
+`train_loop` and exports the final step from process 0. It runs on the card
+unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from training_operator_tpu_torch.trainer import distributed
 from training_operator_tpu_torch.trainer.checkpoint import Checkpointer, restore_into_mesh
 from training_operator_tpu_torch.trainer.data import (
     DataLoader,
@@ -31,6 +35,7 @@ from training_operator_tpu_torch.trainer.data import (
     prefetch,
     process_shard,
 )
+from training_operator_tpu_torch.trainer.mesh import mesh_from_env, mesh_shape
 from training_operator_tpu_torch.trainer.model import TransformerConfig, resolve_device
 from training_operator_tpu_torch.trainer.train import (
     AdamW,
@@ -56,7 +61,8 @@ def train_loop(config: TransformerConfig, optimizer: AdamW, state: TrainState,
     `saves`, `wall_s`, `data_s` (host time waiting for the next batch),
     `ckpt_s` (time in saves, measured after the device finished the step
     before) and `last_metrics`."""
-    step_fn = step_fn or make_train_step(config, optimizer, device=loader.device)
+    step_fn = step_fn or make_train_step(config, optimizer, device=loader.device,
+                                         mesh=state.model.mesh)
     cuda = loader.device.type == "cuda"
 
     def fence():
@@ -137,31 +143,38 @@ def main(argv=None) -> TrainState:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    pid, nproc = process_shard()
-    if nproc > 1:
-        raise NotImplementedError(
-            f"NUM_PROCESSES={nproc}: the multi-process trainer needs the "
-            "torch-distributed bootstrap of the sharding slice (ROADMAP item A10)"
-        )
+    _, nproc = process_shard()
     device = resolve_device(args.device)
+    mesh = None
+    if os.environ.get("COORDINATOR_ADDRESS") or nproc > 1:
+        device = distributed.initialize(device=device)
+        mesh = mesh_from_env(device.type)
+        print("mesh:", mesh_shape(mesh))
+    state = _train(args, device, mesh)
+    distributed.shutdown()
+    return state
+
+
+def _train(args, device: torch.device, mesh) -> TrainState:
     config = standalone_config(args.seq_len)
     optimizer = make_optimizer(total_steps=args.steps)
     # Auto-resume whenever checkpoints exist: a preempted pod restarts with
     # the same command, so requiring --resume would turn every preemption
     # into a crash loop. --resume stays for explicitness.
-    have_ckpt = os.path.isdir(args.checkpoint_dir) and any(
+    have_ckpt = distributed.broadcast_object(os.path.isdir(args.checkpoint_dir) and any(
         name.isdigit() for name in os.listdir(args.checkpoint_dir)
-    )
+    ))
     if args.resume or have_ckpt:
-        state = restore_into_mesh(args.checkpoint_dir, config, optimizer, device=device)
+        state = restore_into_mesh(args.checkpoint_dir, config, optimizer, mesh, device=device)
         print("resumed at step", state.step)
     else:
-        state = init_train_state(config, optimizer, device=device)
+        state = init_train_state(config, optimizer, device=device, mesh=mesh)
 
+    # Under a mesh every rank holds the whole dataset and the loader takes
+    # the rank's rows of each global batch.
     dataset = TokenDataset.synthetic(config.vocab_size, args.seq_len,
-                                     num_rows=args.batch_size * 8,
-                                     process_id=pid, num_processes=nproc)
-    loader = DataLoader(dataset, args.batch_size, device=device)
+                                     num_rows=args.batch_size * 8)
+    loader = DataLoader(dataset, args.batch_size, device=device, mesh=mesh)
     ckpt = Checkpointer(args.checkpoint_dir, save_interval_steps=10)
     stats = train_loop(config, optimizer, state, loader, args.steps, ckpt)
     ckpt.close()

@@ -16,6 +16,12 @@ step for step:
 
 Where JAX donates the state to the jitted step, the port updates the
 parameters and moments in place.
+
+Under a mesh (JAX `train.py:56-174`) the state holds this rank's shards
+(model.shard_model) and the moments are shards of the same layout. The step
+sums the gradients over the batch axes (model.reduce_gradients), takes the
+global norm with each element counted once, and runs clip and AdamW
+elementwise on the local shards with the same count and lr on every rank.
 """
 
 from __future__ import annotations
@@ -25,13 +31,21 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
+from training_operator_tpu_torch.trainer.mesh import AXIS_ORDER
 from training_operator_tpu_torch.trainer.model import (
     Transformer,
     TransformerConfig,
     init_params,
     loss_fn,
+    param_placements,
+    param_shapes,
+    reduce_gradients,
     resolve_device,
+    shard_model,
+    spec_axes,
 )
 
 
@@ -95,10 +109,11 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: AdamWState,
-               params: Dict[str, torch.Tensor]) -> torch.Tensor:
+               params: Dict[str, torch.Tensor],
+               mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
         """One step, in place on `params` and `state`; returns the global
-        norm of the raw `grads`."""
-        g_norm = global_norm(grads)
+        norm of the raw `grads` (local shards under a mesh)."""
+        g_norm = global_norm(grads, mesh)
         clip = g_norm >= self.clip_norm
         lr = self.schedule(state.count)
         state.count += 1
@@ -122,33 +137,53 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.01,
     return AdamW(learning_rate, weight_decay, warmup_steps, total_steps, clip_norm)
 
 
-def global_norm(tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor, fp32, on their device."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors.values()))
+def global_norm(tensors: Dict[str, torch.Tensor],
+                mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor, fp32, on their device.
+    Under a mesh the tensors are the local shards of the parameters of the
+    same names, and each element counts once: a shard adds its squares on
+    the one rank at coordinate 0 of every axis that replicates it, then one
+    all-reduce sums over the world."""
+    if mesh is None:
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors.values()))
+    total = None
+    for name, t in tensors.items():
+        sharded = spec_axes(name)
+        owner = all(mesh.get_local_rank(a) == 0 for a in AXIS_ORDER if a not in sharded)
+        sq = t.float().square().sum() if owner else t.new_zeros((), dtype=torch.float32)
+        total = sq if total is None else total + sq
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def init_train_state(config: TransformerConfig, optimizer: AdamW,
                      generator: Optional[torch.Generator] = None,
-                     device=None) -> TrainState:
+                     device=None, mesh: Optional[DeviceMesh] = None) -> TrainState:
     """Params from `init_params` (generator seeded 0 by default) and zero
-    moments, on the card unless `device` says otherwise."""
+    moments, on the card unless `device` says otherwise. Under a mesh every
+    rank draws the same full parameters and keeps its shards; the moments
+    take the same layout."""
     device = resolve_device(device)
     model = init_params(config, generator, device)
+    if mesh is not None:
+        shard_model(model, mesh)
     return TrainState(step=0, model=model,
                       opt_state=optimizer.init(dict(model.named_parameters())))
 
 
 def template_train_state(config: TransformerConfig, optimizer: AdamW,
-                         device=None) -> TrainState:
+                         device=None, mesh: Optional[DeviceMesh] = None) -> TrainState:
     """A zero-filled TrainState, the checkpoint-restore target: no generator
     and no init compute (a restore overwrites every value; only shapes,
-    dtypes and the device matter). On the card unless `device` says
-    otherwise."""
+    dtypes, the device and the mesh layout matter). On the card unless
+    `device` says otherwise."""
     device = resolve_device(device)
     model = Transformer(config, device)
     with torch.no_grad():
         for p in model.parameters():
             p.zero_()
+    if mesh is not None:
+        shard_model(model, mesh)
     return TrainState(step=0, model=model,
                       opt_state=optimizer.init(dict(model.named_parameters())))
 
@@ -157,14 +192,33 @@ def state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
     """The flat state dict of a TrainState: `step` and the AdamW `count` as
     0-d int64 CPU tensors, and `params.<name>`, `mu.<name>`, `nu.<name>` for
     every parameter. The tensors are the state's own (no copies), so loading
-    into this dict in place fills the state (`load_state_dict`)."""
+    into this dict in place fills the state (`load_state_dict`). Under a
+    mesh each shard is wrapped as a DTensor with its parameter's placements
+    and global shape, so a checkpoint records the layout and a restore onto
+    another mesh (or none) reshards on read."""
     out = {"step": torch.tensor(state.step, dtype=torch.int64),
            "count": torch.tensor(state.opt_state.count, dtype=torch.int64)}
+    mesh = state.model.mesh
+    full = param_shapes(state.model.config)
     for name, p in state.model.named_parameters():
-        out["params." + name] = p.detach()
-        out["mu." + name] = state.opt_state.mu[name]
-        out["nu." + name] = state.opt_state.nu[name]
+        for key, t in (("params.", p.detach()), ("mu.", state.opt_state.mu[name]),
+                       ("nu.", state.opt_state.nu[name])):
+            if mesh is not None:
+                t = _as_dtensor(t, mesh, name, full[name])
+            out[key + name] = t
     return out
+
+
+def _as_dtensor(local: torch.Tensor, mesh: DeviceMesh, name: str, shape) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, mesh, param_placements(name), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 @torch.no_grad()
@@ -178,31 +232,40 @@ def load_state_dict(state: TrainState, flat: Dict[str, torch.Tensor]) -> TrainSt
     for key, dst in own.items():
         # A dict from `state_dict(state)` that was loaded in place already
         # holds the state's own tensors.
-        if key not in ("step", "count") and dst.data_ptr() != flat[key].data_ptr():
-            dst.copy_(flat[key])
+        dst, src = _local(dst), _local(flat[key])
+        if key not in ("step", "count") and dst.data_ptr() != src.data_ptr():
+            dst.copy_(src)
     state.step = int(flat["step"])
     state.opt_state.count = int(flat["count"])
     return state
 
 
-def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None):
+def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None,
+                    mesh: Optional[DeviceMesh] = None):
     """Returns `step(state, batch) -> (state, metrics)`: loss, gradient,
     clip + AdamW in place. Metrics: `loss`, `grad_norm` (of the raw
-    gradients) and `step`, as tensors on the device except `step`. The batch
-    must already lie on the step's device (the DataLoader puts it there)."""
+    gradients) and `step`, as tensors on the device except `step`; under a
+    mesh, the global loss and norm on every rank. The batch must already lie
+    on the step's device (the DataLoader puts it there); under a mesh it is
+    this rank's rows, and the state must be sharded on `mesh`."""
     device = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model
         if batch["tokens"].device.type != device.type:
             raise ValueError(f"batch on {batch['tokens'].device}, step on {device}")
+        if model.mesh is not mesh:
+            raise ValueError("the state's mesh is not the step's: shard the state with "
+                             "init_train_state/template_train_state(..., mesh=mesh)")
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         loss = loss_fn(model, batch, config)
         loss.backward()
+        if mesh is not None:
+            reduce_gradients(model)
         grads = {n: p.grad for n, p in params.items()}
-        grad_norm = optimizer.update(grads, state.opt_state, params)
+        grad_norm = optimizer.update(grads, state.opt_state, params, mesh)
         for p in params.values():
             p.grad = None
         state.step += 1
