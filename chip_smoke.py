@@ -46,7 +46,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             from the operator's env (COORDINATOR_ADDRESS=127.0.0.1, a free
             COORDINATOR_PORT, NUM_PROCESSES=1, PROCESS_ID=0,
             TPU_MESH_AXES=fsdp=1,tensor=1) through distributed.initialize,
-            mesh_from_env and shard_model (init_train_state(..., mesh)): the
+            mesh_from_env and init_train_state(..., mesh) (the shards built
+            directly): the
             flagship at full width as in phase 4, 1 warm-up step and 5 timed
             steps, 12/12/12 launches per step. The unsharded make_train_step
             runs the same parameters and batches first: the sharded step-0
@@ -59,10 +60,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             6: it must resume at step 4. Ends with distributed.shutdown().
 7. dryrun   graft_entry.dryrun_multichip(8) on the host CPU: 8 gloo
             processes, each pass's sharded loss within 5e-3 of the
-            single-process loss; a CPU phase, its seconds are host seconds.
+            single-process loss (pass 1 on tensor=2,sequence=2,fsdp=2: the
+            ring over gloo); a CPU phase, its seconds are host seconds.
+8. ring     the ring attention's per-rank body (attention.ring_forward and
+            ring_backward) through the loopback transport: the NS ranks of
+            the ring run one after another on the card, each taking its K/V
+            blocks from a list and adding its dk/dv into the owner's slot.
+            Forward and backward at the flagship attention shape
+            [8, 2048, 12, 128] bf16 causal with NS = 2 and 4, and at the
+            long-context point [2, 8192, 12, 128] with NS = 4. Out, the
+            merged lse, dq, dk and dv are held to the plain version on the
+            unsplit sequence (fp32, one batch row at a time) under phase 3's
+            elementwise rules; as there, the plain backward takes the ring's
+            own lse and delta (from the ring's out). The launch counts are
+            reset before each call: NS(NS+1)/2 forward, dq and dk/dv
+            launches, NS of each causal (the diagonal blocks). Each case is
+            timed in CUDA events beside the unsplit flash forward + backward
+            at the same shape.
 
-The last lines are the `kernels` JSON line, the card's name and power limit,
-and `{"ok": true, "device": {...}}`.
+The last lines are the `kernels` JSON line (each kernel's row with its
+launches in phases 4, 6 and 8), the card's name and power limit, and
+`{"ok": true, "device": {...}}`.
 
 Tolerances, bf16 kernel against the plain version in fp32 on the same bf16
 inputs:
@@ -92,6 +110,10 @@ inputs:
   state's (the same parameters, batch and kernels: any difference would be
   the card's summation order, which the kernels fix); the graft entry's
   loss within 1e-6 of loss_fn on the same arguments.
+- ring: phase 3's rules for out, lse, dq, dk, dv. The ring rounds each
+  block's out, dq, dk and dv to bf16 before the fp32 merge or sum, so its
+  errors sit above one kernel's: on an H100 the scaled gradient errors
+  read 0.013-0.015 against GRAD_TOL's 0.02.
 - mesh: 1e-5 relative. A world of one runs the unsharded path's products
   and kernels on the same values; only the vocab-parallel logsumexp (max,
   exp, sum and log written out) and the copies of the size-1 collectives
@@ -150,19 +172,23 @@ def check_kernels(flash, shape, causal, seed):
     ref_dk, ref_dv = flash.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal)
     errs = {"out": out_err.max().item(), "lse": lse_err}
     for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
-        diff = (got.float() - ref).abs()
-        # The elementwise tolerance as one number: <= GRAD_TOL passes.
-        row_rms = ref.square().mean(-1, keepdim=True).sqrt()
-        floor = 1e-2 * ref.square().mean().sqrt()
-        worst = (diff / (row_rms + ref.abs() + floor)).max().item()
-        if not worst <= GRAD_TOL:
-            raise AssertionError(f"{name} disagrees at {shape} causal={causal}: "
-                                 f"max |err| / (row rms + |plain|) = {worst}")
-        errs[name] = diff.max().item()
-        errs[name + "_scaled"] = worst
+        errs.update(grad_errors(name, got, ref, f"at {shape} causal={causal}"))
     del q, k, v, do, out, lse, ref_out, ref_lse, dq, dk, dv, ref_dq, ref_dk, ref_dv
     torch.cuda.empty_cache()
     return errs
+
+
+def grad_errors(name, got, ref, where) -> dict:
+    """{name: max |got - ref|, name_scaled: the elementwise rule of the
+    module docstring as one number}; raises above GRAD_TOL."""
+    diff = (got.float() - ref).abs()
+    row_rms = ref.square().mean(-1, keepdim=True).sqrt()
+    floor = 1e-2 * ref.square().mean().sqrt()
+    worst = (diff / (row_rms + ref.abs() + floor)).max().item()
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"{name} disagrees {where}: max |err| / (row rms + |plain|) "
+                             f"= {worst}")
+    return {name: diff.max().item(), name + "_scaled": worst}
 
 
 # dq, dk, dv against their plain versions; see the module docstring. On an
@@ -289,6 +315,103 @@ def run_loop(config, batch, seq, card):
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         shutil.rmtree(export_dir, ignore_errors=True)
+
+
+def plain_reference(flash, q, k, v, do, causal, lse, delta, rows):
+    """The plain versions on the unsplit sequence in fp32, `rows` batch rows
+    at a time (the score matrices of [2, 8192, 12, 128] take 3.2 GB per row):
+    out and lse of the forward, and dq, dk, dv of the backward given `lse`
+    and `delta` ([B*H, S(, 1)], the checked path's own, as phase 3 gives
+    each kernel's)."""
+    import torch
+
+    h = q.shape[2]
+    outs = {n: [] for n in ("out", "lse", "dq", "dk", "dv")}
+    for i in range(0, q.shape[0], rows):
+        qf, kf, vf, dof = (x[i:i + rows].float() for x in (q, k, v, do))
+        out, ref_lse = flash.flash_fwd_plain(qf, kf, vf, causal)
+        outs["out"].append(out)
+        outs["lse"].append(ref_lse)
+        lse_i, delta_i = lse[i * h:(i + rows) * h], delta[i * h:(i + rows) * h]
+        outs["dq"].append(flash.flash_bwd_dq_plain(qf, kf, vf, dof, lse_i, delta_i, causal))
+        dk, dv = flash.flash_bwd_dkv_plain(qf, kf, vf, dof, lse_i, delta_i, causal)
+        outs["dk"].append(dk)
+        outs["dv"].append(dv)
+        del qf, kf, vf, dof, out, ref_lse, dk, dv
+        torch.cuda.empty_cache()
+    return {n: torch.cat(x, 0) for n, x in outs.items()}
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean ms of `fn()` over `iters` calls after one warm-up, CUDA events."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def run_ring(card) -> dict:
+    """Phase 8; see the module docstring. Raises on any failed check and
+    returns the launch counts of the checked calls, summed."""
+    import torch
+
+    from training_operator_tpu_torch.trainer import attention, flash
+    from training_operator_tpu_torch.trainer.bench import RING_CASES
+
+    totals = {n: 0 for n in flash.launches}
+    for i, (shape, ns) in enumerate(RING_CASES):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+                       for _ in range(4))
+        blocks = [[c.contiguous() for c in x.chunk(ns, 1)] for x in (q, k, v, do)]
+        flash.reset_launches()
+        outs, lses, dqs, dks, dvs = attention.ring_loopback(*blocks, True)
+        torch.cuda.synchronize()
+        got, causal = dict(flash.launches), dict(flash.launches_causal)
+        want = ns * (ns + 1) // 2
+        if got != {n: want for n in got} or causal != {n: ns for n in causal}:
+            raise AssertionError(f"ring {list(shape)} NS={ns}: launches {got}, causal {causal}; "
+                                 f"expected {want} of each, {ns} causal")
+        for n in totals:
+            totals[n] += got[n]
+        b, s, h, _ = shape
+        out = torch.cat(outs, 1)
+        lse = torch.cat([x.reshape(b, h, -1) for x in lses], 2).reshape(b * h, s, 1)
+        ref = plain_reference(flash, q, k, v, do, True, lse, flash.row_delta(do, out),
+                              rows=1 if s > 4096 else b)
+        out_err = (out.float() - ref["out"]).abs()
+        lse_err = (lse - ref["lse"]).abs().max().item()
+        if not bool((out_err <= 1e-2 + 1e-2 * ref["out"].abs()).all()) or lse_err > 1e-3:
+            raise AssertionError(f"ring {list(shape)} NS={ns}: out max abs err "
+                                 f"{out_err.max().item()}, lse {lse_err}")
+        errs = {"out": out_err.max().item(), "lse": lse_err}
+        for name, parts in (("dq", dqs), ("dk", dks), ("dv", dvs)):
+            errs.update(grad_errors(name, torch.cat(parts, 1), ref[name],
+                                    f"in the ring at {list(shape)} NS={ns}"))
+        del ref, out, lse, out_err, outs, lses, dqs, dks, dvs
+        torch.cuda.empty_cache()
+
+        def unsplit():
+            o, lse = flash.flash_fwd(q, k, v, True)
+            delta = flash.row_delta(do, o)
+            flash.flash_bwd_dq(q, k, v, do, lse, delta, True)
+            flash.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+
+        ring_ms = cuda_ms(lambda: attention.ring_loopback(*blocks, True), iters=5)
+        flat_ms = cuda_ms(unsplit, iters=5)
+        log(f"ring: {list(shape)} bf16 causal NS={ns}: launches {got} ({ns} causal each), "
+            + json.dumps(errs) + f"; forward+backward {ring_ms:.4f} ms loopback ring vs "
+            f"{flat_ms:.4f} ms unsplit flash ({100 * (ring_ms / flat_ms - 1):+.1f}%) on {card}")
+        del q, k, v, do, blocks
+        torch.cuda.empty_cache()
+    flash.reset_launches()
+    return totals
 
 
 def free_port() -> int:
@@ -590,9 +713,14 @@ def main() -> int:
         "(CPU numbers, not the card's):")
     passes = graft_entry.dryrun_multichip(8)
     log(f"dryrun: {len(passes)} passes with parity in {time.perf_counter() - t:.1f} s "
-        f"host wall (CPU)")
+        f"host wall (CPU): " + "; ".join(f"{p['mesh']}" for p in passes))
+    if graft_entry._pass1_axes(8).get("sequence") != 2 or passes[0]["mesh"]["sequence"] != 2:
+        raise AssertionError(f"dryrun pass 1 ran on {passes[0]['mesh']}, not sequence=2")
 
-    # 8. report
+    # 8. ring
+    ring_launches = run_ring(card)
+
+    # report
     sources = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",
                "flash_bwd_dkv": "flash_bwd_dkv.cu"}
     replaces = {
@@ -616,6 +744,7 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": train_launches[name],
             "launches_mesh": mesh_launches[name],
+            "launches_ring": ring_launches[name],
             "max_abs_err": err_of[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

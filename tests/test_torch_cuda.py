@@ -145,7 +145,7 @@ def test_launch_counts(card):
 
 def test_world_of_one_sharded_step_matches_the_unsharded(card, tmp_path):
     """The sharded trainer as a world of one NCCL rank (the operator's env,
-    a file store): shard_model on the mesh fsdp=1,tensor=1; two steps match
+    a file store): init_train_state on the mesh fsdp=1,tensor=1; two steps match
     the unsharded step on the same parameters and batches (loss within 1e-5
     relative; every parameter and mu within 1e-5 in relative Frobenius
     norm), and the sharded step launches each kernel once per layer. A save
@@ -187,3 +187,40 @@ def test_world_of_one_sharded_step_matches_the_unsharded(card, tmp_path):
             assert torch.equal(p, state.params[name]), name
     finally:
         distributed.shutdown()
+
+
+@pytest.mark.parametrize("ns", [2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_loopback_ring_matches_plain(card, ns, causal):
+    """The ring's per-rank body through the loopback transport on the card
+    (chip_smoke.py phase 8 at a small shape): out, lse and the gradients
+    against the plain version on the unsplit sequence, as
+    test_kernels_match_plain holds one kernel (the plain backward takes the
+    ring's own lse and delta); NS(NS+1)/2 launches of each kernel under a
+    causal mask, NS of them causal, NS^2 without one."""
+    from training_operator_tpu_torch.trainer import attention
+
+    shape = (2, 512, 4, 128)
+    q, k, v, do = _inputs(shape, 3)
+    blocks = [[c.contiguous() for c in x.chunk(ns, 1)] for x in (q, k, v, do)]
+    flash.reset_launches()
+    outs, lses, dqs, dks, dvs = attention.ring_loopback(*blocks, causal)
+    n = ns * (ns + 1) // 2 if causal else ns * ns
+    assert flash.launches == {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    assert set(flash.launches_causal.values()) == {ns if causal else 0}
+    b, s, h, _ = shape
+    out = torch.cat(outs, 1)
+    lse = torch.cat([x.reshape(b, h, -1) for x in lses], 2).reshape(b * h, s, 1)
+    f = [x.float() for x in (q, k, v, do)]
+    ref_out, ref_lse = flash.flash_fwd_plain(*f[:3], causal)
+    assert bool(((out.float() - ref_out).abs() <= 1e-2 + 1e-2 * ref_out.abs()).all())
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    delta = flash.row_delta(do, out)
+    ref = (flash.flash_bwd_dq_plain(*f, lse, delta, causal),
+           *flash.flash_bwd_dkv_plain(*f, lse, delta, causal))
+    for name, parts, r in zip(("dq", "dk", "dv"), (dqs, dks, dvs), ref):
+        g = torch.cat(parts, 1).float()
+        row_rms = r.square().mean(-1, keepdim=True).sqrt()
+        floor = 1e-2 * r.square().mean().sqrt()
+        worst = ((g - r).abs() / (row_rms + r.abs() + floor)).max().item()
+        assert worst <= 2e-2, (name, worst)

@@ -14,6 +14,7 @@ import sys
 import time
 
 import pytest
+import torch
 
 import torch_mesh_workers as workers
 from training_operator_tpu_torch import graft_entry
@@ -47,20 +48,21 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _launch(ckpt_dir, steps):
-    """The trainer entry as 2 processes with the operator's env; returns
-    each one's stdout."""
+def _launch(ckpt_dir, steps, pods=2, axes="fsdp=2", local_workers=None, extra_env=None):
+    """The trainer entry as `pods` processes with the operator's env (each
+    with `--local-workers` when given); returns each one's stdout."""
     port = str(_free_port())
     procs = []
-    for rank in range(2):
+    local = [] if local_workers is None else ["--local-workers", str(local_workers)]
+    for rank in range(pods):
         env = {**os.environ, "PYTHONPATH": ROOT, "COORDINATOR_ADDRESS": "127.0.0.1",
-               "COORDINATOR_PORT": port, "NUM_PROCESSES": "2", "PROCESS_ID": str(rank),
-               "TPU_MESH_AXES": "fsdp=2"}
+               "COORDINATOR_PORT": port, "NUM_PROCESSES": str(pods), "PROCESS_ID": str(rank),
+               "TPU_MESH_AXES": axes, **(extra_env or {})}
         env.pop("MODEL_EXPORT_URI", None)
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "training_operator_tpu_torch.trainer.standalone",
              "--device", "cpu", "--steps", str(steps), "--seq-len", "32", "--batch-size", "4",
-             "--checkpoint-dir", str(ckpt_dir)],
+             "--checkpoint-dir", str(ckpt_dir), *local],
             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outs = []
     try:
@@ -93,11 +95,35 @@ def test_entry_runs_as_two_processes_and_resumes(tmp_path):
     assert sorted(os.listdir(ckpt / "6")) == [".metadata", "__0_0.distcp", "__1_0.distcp"]
 
 
-@pytest.mark.parametrize("n,axes", [(1, {}), (2, {"tensor": 2}), (4, {"data": 2, "tensor": 2}),
-                                    (8, {"data": 2, "fsdp": 2, "tensor": 2})])
+def test_pods_start_one_worker_per_local_card(tmp_path):
+    """The operator runs one process per pod (NUM_PROCESSES pods); each
+    starts its local workers with torchrun's ranks. Two pods of two workers
+    on fsdp=2,tensor=2 train as a world of four processes does: the same
+    loss lines, and a final checkpoint equal bit for bit (one intra-op
+    thread on both sides, so the CPU sums run in one order)."""
+    from training_operator_tpu_torch.trainer.checkpoint import restore_into_mesh
+    from training_operator_tpu_torch.trainer.standalone import standalone_config
+    from training_operator_tpu_torch.trainer.train import make_optimizer, state_dict
+
+    env = {"OMP_NUM_THREADS": "1"}
+    pods = _launch(tmp_path / "pods", 3, pods=2, axes="fsdp=2,tensor=2", local_workers=2,
+                   extra_env=env)
+    world = _launch(tmp_path / "world", 3, pods=4, axes="fsdp=2,tensor=2", extra_env=env)
+    lines = [sorted(line for out in outs for line in out.splitlines()) for outs in (pods, world)]
+    assert lines[0] == lines[1]
+    assert lines[0].count("done at step 3") == 4 and any("step 3 loss" in x for x in lines[0])
+    states = [state_dict(restore_into_mesh(str(tmp_path / d), standalone_config(32),
+                                           make_optimizer(), device="cpu"))
+              for d in ("pods", "world")]
+    for key, value in states[1].items():
+        assert torch.equal(states[0][key], value), key
+
+
+@pytest.mark.parametrize("n,axes", [(1, {}), (2, {"tensor": 2}), (4, {"tensor": 2, "sequence": 2}),
+                                    (8, {"tensor": 2, "sequence": 2, "fsdp": 2}),
+                                    (16, {"tensor": 2, "sequence": 2, "fsdp": 2, "data": 2})])
 def test_dryrun_pass1_factorization(n, axes):
-    """JAX's pass 1 (tensor, sequence, fsdp, data by twos) with the sequence
-    factor folded into data: 4 -> tensor=2,sequence=2 there."""
+    """JAX's pass 1: tensor, sequence, fsdp by twos, the rest on data."""
     assert graft_entry._pass1_axes(n) == axes
 
 
@@ -105,7 +131,7 @@ def test_dryrun_multichip_4(capsys):
     passes = graft_entry.dryrun_multichip(4)
     assert [p["label"] for p in passes] == ["dryrun_multichip(4)"]
     p = passes[0]
-    assert p["mesh"] == {"pipeline": 1, "data": 2, "fsdp": 1, "expert": 1, "sequence": 1,
+    assert p["mesh"] == {"pipeline": 1, "data": 1, "fsdp": 1, "expert": 1, "sequence": 2,
                          "tensor": 2}
     assert abs(p["loss"] - p["ref_loss"]) <= 5e-3 * p["ref_loss"]
     out = capsys.readouterr().out

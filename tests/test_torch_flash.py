@@ -105,8 +105,13 @@ def test_wrappers_refuse_mixed_devices_and_unknown_impl():
     q = torch.zeros(1, 8, 1, 64)
     with pytest.raises(ValueError):
         pt_attention.attention(q, q, q, impl="nope")
-    with pytest.raises(NotImplementedError):
-        pt_attention.attention(q, q, q, impl="ring")
+    # Without a sequence axis "ring" and "ulysses" take the single-device
+    # path, as the JAX dispatcher does: its plain path, on any mesh-less call.
+    x = _inputs(7, (1, 8, 2, 64), n=1)[0]
+    want = np.asarray(jax_attention.attention(*(jnp.asarray(x),) * 3, impl="ring"))
+    for impl in ("ring", "ulysses"):
+        got = pt_attention.attention(*(torch.from_numpy(x),) * 3, impl=impl)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, err_msg=impl)
     meta = torch.zeros(1, 8, 1, 64, device="meta")
     with pytest.raises(ValueError):
         pt_flash.flash_fwd(q, meta, q)

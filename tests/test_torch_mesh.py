@@ -152,8 +152,8 @@ def test_param_specs_are_the_jax_table():
             assert placements[i] == (Shard(dims[0]) if dims else Replicate()), (name, axis)
 
 
-@pytest.mark.parametrize("axes,item", [({"sequence": 2}, 11), ({"pipeline": 2}, 12),
-                                       ({"expert": 2}, 13)])
+@pytest.mark.parametrize("axes,item", [({"pipeline": 2, "sequence": 2}, 12),
+                                       ({"pipeline": 2}, 12), ({"expert": 2}, 13)])
 def test_mesh_refuses_axes_not_ported(axes, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         build_mesh(MeshSpec(axes), "cpu")
@@ -202,6 +202,20 @@ def test_sharded_matches_the_single_process_port(ref, world, config):
     steps = workers.train(state, pcfg, BATCHES)
     np.testing.assert_allclose(ranks[0][config]["steps"], steps, rtol=1e-5)
     _assert_state_close(ranks[0][config]["state"], workers.gathered(state))
+
+
+def test_sharded_init_holds_only_the_shards(world):
+    """init_train_state and template_train_state on the mesh allocate the
+    rank's shards (parameters, mu and nu) and at most one whole parameter
+    besides, never the whole model (the JAX init into its shards); the
+    sharded init is the unsharded init's shards."""
+    ranks, _ = world
+    for out in ranks:
+        init = out["init"]
+        bound = 3 * init["shards"] + init["largest"]
+        assert init["init"] <= bound, init
+        assert init["template"] <= bound, init
+        assert init["equal"]
 
 
 def test_uneven_mask_loss_is_the_global_masked_mean(ref, world):

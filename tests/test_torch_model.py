@@ -214,6 +214,38 @@ def test_remat_policy_flash_forward_calls(policy, per_layer, monkeypatch):
         torch.testing.assert_close(g, grads["full"][name], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("policy,per_layer", [("full", 2), ("save_dots", 2), ("save_attn", 1),
+                                              ("save_attn_qkv", 1), ("mlp_only", 1)])
+def test_remat_policy_plain_forward_calls(policy, per_layer, monkeypatch):
+    """The same on the plain attention path (attn_impl "xla"), as JAX names
+    "attn_out" on every backend: under "save_attn" and "save_attn_qkv" the
+    plain attention output is computed once per layer per step, not again in
+    the backward. The gradients do not change."""
+    from training_operator_tpu_torch.trainer import attention as pt_attention
+
+    calls = []
+    plain = pt_attention.plain_attention_fwd
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(pt_attention, "plain_attention_fwd", counted)
+    params = jax_params(configs()[0])
+    batch = torch_batch(numpy_batch(4))
+    grads = {}
+    for pol in ("full", policy):
+        _, pcfg = configs(attn_impl="xla", remat_policy=pol)
+        model = port_model(pcfg, params)
+        calls.clear()
+        pt_model.loss_fn(model, batch).backward()
+        grads[pol] = {n: p.grad for n, p in model.named_parameters()}
+        count = len(calls)
+    assert count == per_layer * TINY["n_layers"]
+    for name, g in grads[policy].items():
+        torch.testing.assert_close(g, grads["full"][name], rtol=1e-5, atol=1e-6)
+
+
 def test_unknown_remat_policy_rejected():
     _, pcfg = configs(remat_policy="save_atn")
     with pytest.raises(ValueError, match="remat_policy"):

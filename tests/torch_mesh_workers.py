@@ -1,4 +1,5 @@
-"""Rank bodies for the port's multi-process tests (test_torch_mesh.py).
+"""Rank bodies for the port's multi-process tests (test_torch_mesh.py,
+test_torch_seq.py).
 
 Each function runs in every rank of a gloo CPU world started by
 `training_operator_tpu_torch.trainer.distributed.spawn`, which imports this
@@ -11,23 +12,39 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+from training_operator_tpu_torch.trainer import attention as pt_attention
 
 from training_operator_tpu_torch.trainer.checkpoint import Checkpointer, restore_into_mesh
 from training_operator_tpu_torch.trainer.convert import load_jax_params
 from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset
-from training_operator_tpu_torch.trainer.mesh import MeshSpec, build_mesh, shard_batch
+from training_operator_tpu_torch.trainer.mesh import (
+    MeshSpec,
+    batch_coordinate,
+    build_mesh,
+    sequence_coordinate,
+    shard_batch,
+)
 from training_operator_tpu_torch.trainer.collectives import all_gather
 from training_operator_tpu_torch.trainer.model import (
     PARAM_SPECS,
     Transformer,
     TransformerConfig,
+    init_params,
+    local_shard,
     loss_fn,
+    param_shapes,
     shard_model,
 )
 from training_operator_tpu_torch.trainer.train import (
     TrainState,
+    init_train_state,
     make_optimizer,
     make_train_step,
+    template_train_state,
 )
 
 
@@ -130,6 +147,50 @@ def world(axes: Dict[str, int], configs: Dict[str, TransformerConfig], params: D
                         use_native=True)
     out["loader"] = [b["tokens"].numpy() for _, b in zip(range(2), loader)]
     out["refusals"] = refusals(configs["plain"], mesh, rows)
+    out["init"] = init_footprint(configs["plain"], mesh)
+    return out
+
+
+class PeakBytes(TorchDispatchMode):
+    """The most bytes of CPU storage that the ops run under it held alive
+    at once (storages made by those ops; each counted once, until freed)."""
+
+    def __init__(self):
+        super().__init__()
+        self.live: Dict[int, tuple] = {}
+        self.peak = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.live = {k: v for k, v in self.live.items() if not v[0].expired()}
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.device.type == "cpu":
+                st = t.untyped_storage()
+                if st.nbytes() and st.data_ptr() not in self.live:
+                    self.live[st.data_ptr()] = (StorageWeakRef(st), st.nbytes())
+        self.peak = max(self.peak, sum(n for _, n in self.live.values()))
+        return out
+
+
+def init_footprint(config: TransformerConfig, mesh) -> Dict:
+    """The peak bytes of init_train_state and of template_train_state on
+    `mesh`, beside the bytes of this rank's parameter shards and of the
+    largest whole parameter; and whether the sharded init equals the shards
+    of the unsharded init on the same generator."""
+    out = {}
+    for name, make in (("init", lambda: init_train_state(
+                            config, optimizer(), torch.Generator().manual_seed(0), "cpu", mesh)),
+                       ("template", lambda: template_train_state(config, optimizer(), "cpu",
+                                                                 mesh))):
+        with PeakBytes() as counter:
+            state = make()
+        out[name] = counter.peak
+    out["shards"] = sum(p.numel() * 4 for p in state.model.parameters())
+    out["largest"] = max(int(np.prod(s)) * 4 for s in param_shapes(config).values())
+    state = init_train_state(config, optimizer(), torch.Generator().manual_seed(0), "cpu", mesh)
+    full = init_params(config, torch.Generator().manual_seed(0), "cpu")
+    out["equal"] = all(torch.equal(p, local_shard(n, full.get_parameter(n), mesh))
+                       for n, p in state.model.named_parameters())
     return out
 
 
@@ -187,3 +248,112 @@ def fail_on_rank(rank: int) -> None:
     if torch.distributed.get_rank() == rank:
         raise RuntimeError("this rank fails")
     torch.distributed.barrier()
+
+
+# ----------------------------------------------------------------------
+# Sequence parallelism (test_torch_seq.py)
+# ----------------------------------------------------------------------
+
+def attention_inputs(seed: int, shape) -> List[np.ndarray]:
+    """q, k, v and an output cotangent of `shape`, fp32."""
+    rng = np.random.RandomState(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
+
+
+def block_slices(mesh, shape) -> tuple:
+    """This rank's block of a global [B, S, H, D] attention input: rows by
+    the batch coordinate, positions by `sequence`, heads by `tensor`."""
+    out = []
+    for dim, (index, count) in enumerate((batch_coordinate(mesh), sequence_coordinate(mesh),
+                                          (mesh.get_local_rank("tensor"),
+                                           mesh.size(mesh.mesh_dim_names.index("tensor"))))):
+        n = shape[dim] // count
+        out.append(slice(index * n, (index + 1) * n))
+    return tuple(out)
+
+
+def attention_case(axes, shape, impl: str, causal: bool, seed: int) -> Dict:
+    """`attention(..., mesh)` on this rank's blocks of attention_inputs:
+    its block slices, output and gradients (numpy)."""
+    mesh = build_mesh(MeshSpec(axes), "cpu")
+    q, k, v, do = attention_inputs(seed, shape)
+    where = block_slices(mesh, shape)
+    local = [torch.from_numpy(x[where].copy()).requires_grad_() for x in (q, k, v)]
+    out = pt_attention.attention(*local, causal=causal, impl=impl, mesh=mesh)
+    grads = torch.autograd.grad(out, local, torch.from_numpy(do[where].copy()))
+    return {"where": where, "out": out.detach().numpy(),
+            "grads": [g.numpy() for g in grads]}
+
+
+def counted(module, name: str, calls: List) -> None:
+    """Replaces module.name by a wrapper that appends to `calls`."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(1)
+        return fn(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+
+
+def seq_world(cases: Dict, configs: Dict[str, TransformerConfig], params: Dict,
+              batches: List[Dict], rows: np.ndarray, ckpt_dir: str) -> Dict:
+    """Everything test_torch_seq.py reads from one world of 4 ranks:
+
+    - `attn`: attention_case for each entry of `cases`;
+    - `heads`: the message of Ulysses on heads that do not split;
+    - per config (on sequence=2,fsdp=2): `steps` and, on rank 0, `state`
+      after the batches;
+    - `remat`: per backend and remat policy, the attention forwards run in
+      one step (the ring's per-rank body, or Ulysses' inner plain op) and
+      that step's loss and grad norm;
+    - `loader`: this rank's first two batches of a DataLoader on `rows`
+      (batch_size=len(batches[0]["tokens"])) on sequence=2,fsdp=2, and
+      `odd_sequence`: shard_batch's message for 15 positions;
+    - `saved`, `next`: the ring state after the batches, saved to
+      `ckpt_dir`, gathered (rank 0), and the loss of one more step; then
+      `fsdp4`: `restore` of that checkpoint onto fsdp=4 in the same world.
+    """
+    rank0 = torch.distributed.get_rank() == 0
+    out: Dict = {"attn": {name: attention_case(*case) for name, case in cases.items()}}
+    mesh = build_mesh(MeshSpec({"sequence": 2, "tensor": 2}), "cpu")
+    q = torch.zeros(1, 16, 1, 16)  # 2 heads over tensor=2 leave 1, which sequence=2 cannot split
+    try:
+        pt_attention.attention(q, q, q, impl="ulysses", mesh=mesh)
+    except ValueError as e:
+        out["heads"] = str(e)
+    mesh = build_mesh(MeshSpec({"sequence": 2, "fsdp": 2}), "cpu")
+    loader = DataLoader(TokenDataset(rows), len(batches[0]["tokens"]), device="cpu", mesh=mesh,
+                        use_native=True)
+    out["loader"] = [{k: t.numpy() for k, t in b.items()} for _, b in zip(range(2), loader)]
+    try:
+        shard_batch({"tokens": torch.zeros(4, 15)}, mesh)
+    except ValueError as e:
+        out["odd_sequence"] = str(e)
+    for name, config in configs.items():
+        state = sharded_state(config, params, mesh)
+        out[name] = {"steps": train(state, config, batches)}
+        full = gathered(state)
+        if rank0:
+            out[name]["state"] = full
+        if name == "ring":
+            Checkpointer(ckpt_dir).save(state)
+            out["saved"] = full if rank0 else None
+            out["next"] = train(state, config, batches[:1])[0][0]
+    out["remat"] = {}
+    for impl, fn in (("ring", "ring_forward"), ("ulysses", "plain_attention_fwd")):
+        calls: List = []
+        original = getattr(pt_attention, fn)
+        counted(pt_attention, fn, calls)
+        try:
+            for policy in ("none", "full", "save_attn", "save_attn_qkv"):
+                config = dataclasses.replace(configs[impl], remat=policy != "none",
+                                             remat_policy="full" if policy == "none" else policy)
+                state = sharded_state(config, params, mesh)
+                calls.clear()
+                step = train(state, config, batches[:1])[0]
+                out["remat"][(impl, policy)] = (len(calls), step)
+        finally:
+            setattr(pt_attention, fn, original)
+    out["fsdp4"] = restore({"fsdp": 4}, configs["ring"], ckpt_dir, batches[0])
+    return out

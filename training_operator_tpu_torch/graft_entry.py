@@ -87,8 +87,8 @@ def _run_gate_pass(label: str, config: TransformerConfig, mesh, seed: int,
 
 def _pass1_axes(n: int) -> Dict[str, int]:
     """The JAX pass 1 factorization of n over (tensor, sequence, fsdp,
-    data), with `sequence` folded into `data` until sequence parallelism is
-    ported (ROADMAP item 11)."""
+    data): a factor of 2 for each of the first three while n divides, the
+    rest on data."""
     axes: Dict[str, int] = {}
     for name in ("tensor", "sequence", "fsdp", "data"):
         if n % 2 == 0 and name != "data":
@@ -97,9 +97,6 @@ def _pass1_axes(n: int) -> Dict[str, int]:
         elif n > 1 and name == "data":
             axes[name] = n
             n = 1
-    seq = axes.pop("sequence", 1)
-    if seq > 1:
-        axes["data"] = axes.get("data", 1) * seq
     return axes
 
 
@@ -131,7 +128,7 @@ def _dryrun_rank(n: int) -> List[Dict]:
 
 def dryrun_multichip(n_devices: int) -> List[Dict]:
     """The full sharded train step, once, on n-process meshes of gloo CPU
-    processes: pass 1 (data/fsdp/tensor) and, when n divides by 8, pass 3
+    processes: pass 1 (tensor/sequence/fsdp/data, the ring over gloo) and, when n divides by 8, pass 3
     (multi-slice dp from TPU_MESH_AXES=data=2,fsdp=2,tensor=2). Each pass's
     loss must match the single-process loss (rtol 5e-3); any failure
     raises. Pass 2 (pipeline x expert x tensor) waits for ROADMAP items

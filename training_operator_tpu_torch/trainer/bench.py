@@ -222,6 +222,68 @@ def profile_train_step(config: TransformerConfig, batch: int, seq: int,
     }
 
 
+RING_CASES = (((8, 2048, 12, 128), 2), ((8, 2048, 12, 128), 4), ((2, 8192, 12, 128), 4))
+
+
+def profile_ring(shape=(8, 2048, 12, 128), ns: int = 2, iters: int = 5, top: int = 12,
+                 device=None) -> Dict[str, Any]:
+    """The ring's per-rank body for `ns` ranks through the loopback
+    transport (attention.ring_loopback: every rank's forward, then every
+    rank's backward), bf16 causal on random inputs of `shape`: its CUDA-event
+    time beside the unsplit flash forward + backward, and a torch.profiler
+    window over `iters` calls, the device time by kernel family and top
+    kernels per call and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from training_operator_tpu_torch.trainer import attention, flash
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("profile_ring measures the card; no CUDA device given")
+    g = torch.Generator(device=device).manual_seed(0)
+    q, k, v, do = (torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16)
+                   for _ in range(4))
+    blocks = [[c.contiguous() for c in x.chunk(ns, 1)] for x in (q, k, v, do)]
+
+    def ring():
+        attention.ring_loopback(*blocks, True)
+
+    def unsplit():
+        o, lse = flash.flash_fwd(q, k, v, True)
+        delta = flash.row_delta(do, o)
+        flash.flash_bwd_dq(q, k, v, do, lse, delta, True)
+        flash.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+
+    out = {"shape": list(shape), "ns": ns, "ring_ms": cuda_time_ms(ring, iters),
+           "unsplit_ms": cuda_time_ms(unsplit, iters)}
+    out["overhead_pct"] = 100 * (out["ring_ms"] / out["unsplit_ms"] - 1)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            ring()
+        end.record()
+        end.synchronize()
+    window_ms = start.elapsed_time(end)
+    by_name: Dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    families: Dict[str, float] = {}
+    for name, ms in by_name.items():
+        fam = _kernel_family(name)
+        families[fam] = families.get(fam, 0.0) + ms / iters
+    out.update(profiled_ms=window_ms / iters, device_busy_ms=busy / iters,
+               device_idle_share=(1.0 - busy / window_ms) if by_name else None,
+               families_ms=families,
+               top_kernels_ms=[[n[:100], ms / iters] for n, ms in
+                               sorted(by_name.items(), key=lambda kv: -kv[1])[:top]])
+    return out
+
+
 def profile_mesh_step(config: TransformerConfig, batch: int, seq: int) -> Dict[str, Any]:
     """`profile_train_step` unsharded, then sharded on the mesh
     fsdp=1,tensor=1 of a world of one NCCL rank (a file store in a
@@ -557,7 +619,8 @@ def main(argv=None) -> None:
     `attention_sweep`; with `--loss-gap`, only `loss_gaps`; with `--loop`,
     `run_trainer_bench` (step, kernels, data path, end-to-end loop); with
     `--mesh`, the profile of the unsharded step and of the step sharded on
-    a world of one NCCL rank (fsdp=1,tensor=1), in that order."""
+    a world of one NCCL rank (fsdp=1,tensor=1), in that order; with
+    `--ring`, `profile_ring` at chip_smoke.py phase 8's three cases."""
     import argparse
     import json
     import subprocess
@@ -571,6 +634,8 @@ def main(argv=None) -> None:
                         help="run_trainer_bench: step, kernels, data path and the loop")
     parser.add_argument("--mesh", action="store_true",
                         help="profile the step unsharded and sharded on a world of one")
+    parser.add_argument("--ring", action="store_true",
+                        help="profile the loopback ring beside the unsplit flash kernels")
     args = parser.parse_args(argv)
     config, batch, seq = flagship_config()
     card = subprocess.run(
@@ -579,6 +644,8 @@ def main(argv=None) -> None:
     ).stdout.strip()
     if args.loss_gap:
         out = {"card": card, "loss_gaps": loss_gaps()}
+    elif args.ring:
+        out = {"card": card, "ring": [profile_ring(shape, ns) for shape, ns in RING_CASES]}
     elif args.mesh:
         out = {"card": card, **profile_mesh_step(config, batch, seq)}
     elif args.loop:

@@ -7,9 +7,10 @@ prefetcher (training_operator_tpu_torch/native) alike.
 
 Under a mesh (JAX `data.py:76-150`) `batch_size` is the global batch and
 each rank gathers and emits only its rows of it, the slice at its batch
-coordinate over (data, fsdp, expert) (mesh.batch_coordinate): ranks that
-differ only in `tensor` get the same rows, and the union over the batch
-coordinates is the batch the unsharded loader yields. The dataset is then
+coordinate over (data, fsdp, expert) (mesh.batch_coordinate), and of those
+rows the slice of positions at its `sequence` coordinate: ranks that differ
+only in `tensor` get the same block, and the union over the coordinates is
+the batch the unsharded loader yields. The dataset is then
 the same on every rank; `process_shard` splits it by PROCESS_ID only for
 separate single-process trainers, since a tensor peer is a process too.
 """
@@ -26,7 +27,12 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from training_operator_tpu_torch import native
-from training_operator_tpu_torch.trainer.mesh import BATCH_AXES, batch_coordinate
+from training_operator_tpu_torch.trainer.mesh import (
+    BATCH_AXES,
+    batch_coordinate,
+    check_sequence,
+    sequence_coordinate,
+)
 from training_operator_tpu_torch.trainer.model import resolve_device
 
 
@@ -96,8 +102,10 @@ class DataLoader:
             raise ValueError(
                 f"batch_size {batch_size} exceeds dataset shard of {len(dataset)} rows"
             )
-        # This rank's rows [lo, lo + local) of every global batch.
+        # This rank's rows [lo, lo + local) of every global batch, and its
+        # positions [pos, pos + seq) of each row (seq None: all of them).
         self.local, self.lo = batch_size, 0
+        self.pos, self.seq = 0, None
         if mesh is not None:
             if not drop_last:
                 # A partial tail batch cannot be split over the batch axes;
@@ -109,6 +117,12 @@ class DataLoader:
                                  f"axes {BATCH_AXES} ({count} shards)")
             self.local = batch_size // count
             self.lo = index * self.local
+            s_index, s_count = sequence_coordinate(mesh)
+            if s_count > 1:
+                row = dataset.rows.shape[1] - 1
+                check_sequence(row, mesh)
+                self.seq = row // s_count
+                self.pos = s_index * self.seq
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -148,10 +162,11 @@ class DataLoader:
             yield self._emit(rows[order[start : start + self.local]])
 
     def _emit(self, chunk: np.ndarray) -> Dict[str, torch.Tensor]:
+        end = chunk.shape[1] - 1 if self.seq is None else self.pos + self.seq
         batch = {
-            "tokens": np.ascontiguousarray(chunk[:, :-1]),
-            "targets": np.ascontiguousarray(chunk[:, 1:]),
-            "mask": np.ones((chunk.shape[0], chunk.shape[1] - 1), dtype=np.float32),
+            "tokens": np.ascontiguousarray(chunk[:, self.pos:end]),
+            "targets": np.ascontiguousarray(chunk[:, self.pos + 1:end + 1]),
+            "mask": np.ones((chunk.shape[0], end - self.pos), dtype=np.float32),
         }
         cuda = self.device.type == "cuda"
         out = {}

@@ -6,10 +6,12 @@ COORDINATOR_PORT, NUM_PROCESSES and PROCESS_ID into every worker;
 `initialize` turns them into `init_process_group` (a `tcp://` rendezvous at
 the coordinator, which rank 0 serves), NCCL on the card and gloo on the CPU.
 
-One process per device: a JAX process owns all of its host's chips, a port
-process owns one card, `cuda:{PROCESS_ID % device_count}`. So a host with n
-cards runs n worker processes, and NUM_PROCESSES counts cards, not hosts.
-The mesh (mesh.py) is built over this world; ranks are process ids.
+The operator runs one process per pod (NUM_PROCESSES pods, PROCESS_ID the
+pod's index), as a JAX process owns all of its host's chips. A port process
+drives one card, so the pod's process starts one worker per local card
+(`worker_env`, torchrun's arithmetic): worker i of `local` has rank
+PROCESS_ID x local + i in a world of NUM_PROCESSES x local and drives
+`cuda:i`. The mesh (mesh.py) is built over this world of workers.
 
 A world of one initializes too, so a single card runs the same sharded path.
 `spawn` starts a world of CPU processes over gloo on one host (the
@@ -34,14 +36,25 @@ from training_operator_tpu_torch.trainer.model import resolve_device
 BOOTSTRAP_ENV = ("COORDINATOR_ADDRESS", "COORDINATOR_PORT", "NUM_PROCESSES", "PROCESS_ID")
 
 
+def worker_env(environ: Mapping[str, str], local: int, i: int) -> Dict[str, str]:
+    """The bootstrap env of worker i of a pod that runs `local` workers:
+    PROCESS_ID and NUM_PROCESSES rewritten to the worker's rank and the
+    world of workers (NUM_PROCESSES, PROCESS_ID default to 1 and 0)."""
+    pods, pod = int(environ.get("NUM_PROCESSES", "1")), int(environ.get("PROCESS_ID", "0"))
+    if not 0 <= i < local:
+        raise ValueError(f"worker {i} outside the pod's {local} workers")
+    return {**environ, "NUM_PROCESSES": str(pods * local), "PROCESS_ID": str(pod * local + i)}
+
+
 def initialize(environ: Optional[Mapping[str, str]] = None, device=None,
                init_method: Optional[str] = None) -> torch.device:
-    """Joins the process group the bootstrap env describes and returns this
-    process's device: `cuda:{PROCESS_ID % device_count}` (made current) on
-    the card, the CPU when `device="cpu"`. `init_method` replaces the
-    `tcp://COORDINATOR_ADDRESS:COORDINATOR_PORT` rendezvous (a `file://`
-    store for processes on one host); rank and world size still come from
-    the env. Raises when a variable it needs is missing."""
+    """Joins the process group the bootstrap env describes (a worker's env:
+    `worker_env`) and returns this process's device: on the card `device`
+    with its index (`cuda:i` for worker i), or the current card for a bare
+    "cuda", made current; the CPU when `device="cpu"`. `init_method`
+    replaces the `tcp://COORDINATOR_ADDRESS:COORDINATOR_PORT` rendezvous (a
+    `file://` store for processes on one host); rank and world size still
+    come from the env. Raises when a variable it needs is missing."""
     e = os.environ if environ is None else environ
     need = ("NUM_PROCESSES", "PROCESS_ID") if init_method else BOOTSTRAP_ENV
     missing = [k for k in need if not e.get(k)]
@@ -52,7 +65,8 @@ def initialize(environ: Optional[Mapping[str, str]] = None, device=None,
         raise ValueError(f"PROCESS_ID {rank} outside NUM_PROCESSES {world}")
     device = resolve_device(device)
     if device.type == "cuda":
-        device = torch.device("cuda", rank % torch.cuda.device_count())
+        index = torch.cuda.current_device() if device.index is None else device.index
+        device = torch.device("cuda", index)
         torch.cuda.set_device(device)
         backend = "nccl"
     else:

@@ -36,13 +36,21 @@ KERNEL_DTYPES = (torch.bfloat16,)
 KERNEL_HEAD_DIMS = (64, 128)
 
 # Launches per kernel since the last reset_launches(): a run reads them to
-# show that its path went through the kernels.
+# show that its path went through the kernels. `launches_causal` counts the
+# causal ones among them (the ring launches both kinds).
 launches: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launches_causal: Dict[str, int] = dict(launches)
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, launches_causal):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(name: str, causal: bool) -> None:
+    launches[name] += 1
+    launches_causal[name] += int(causal)
 
 
 def kernel_supports(q: torch.Tensor) -> bool:
@@ -152,7 +160,7 @@ def flash_fwd(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]
         "flash_fwd_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, s, h, d, int(causal), d ** -0.5, _stream(),
     )
-    launches["flash_fwd"] += 1
+    _count("flash_fwd", causal)
     return out, lse
 
 
@@ -178,7 +186,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, d, int(causal),
         d ** -0.5, _stream(),
     )
-    launches["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq", causal)
     return dq
 
 
@@ -195,7 +203,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d,
         int(causal), d ** -0.5, _stream(),
     )
-    launches["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv", causal)
     return dk, dv
 
 
@@ -252,29 +260,35 @@ def _(q, k, v, do, lse, delta, causal):
 FLASH_FWD_OP = torch.ops.training_operator_tpu_torch.flash_fwd.default
 
 
-def _setup_context(ctx, inputs, output):
-    """Residuals (q, k, v, out, lse), as the JAX custom_vjp saves them; the
-    lse output's cotangent is dropped (it feeds no loss)."""
-    q, k, v, causal = inputs
+def save_residuals(ctx, inputs, output):
+    """Residuals (q, k, v, out, lse), as the JAX custom_vjp saves them, for
+    every attention op of the port (inputs q, k, v, causal, then any
+    others, kept as `ctx.extra`); the lse output's cotangent is dropped (it
+    feeds no loss)."""
+    q, k, v, causal = inputs[:4]
     out, lse = output
     ctx.save_for_backward(q, k, v, out, lse)
-    ctx.causal = causal
+    ctx.causal, ctx.extra = causal, inputs[4:]
     ctx.mark_non_differentiable(lse)
+
+
+def row_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta_i = rowsum(dO_i * O_i) in fp32, outside the kernels as in the
+    JAX backward, folded to the kernels' [B*H, S] row order."""
+    b, s, h, _ = out.shape
+    return (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
 
 
 def _backward(ctx, g, _g_lse):
     q, k, v, out, lse = ctx.saved_tensors
-    b, s, h, _ = q.shape
-    # delta_i = rowsum(dO_i * O_i) in fp32, outside the kernels as in the
-    # JAX backward; folded to the kernels' [B*H, S] row order.
-    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
+    delta = row_delta(g, out)
     ops = torch.ops.training_operator_tpu_torch
     dq = ops.flash_bwd_dq(q, k, v, g, lse, delta, ctx.causal)
     dk, dv = ops.flash_bwd_dkv(q, k, v, g, lse, delta, ctx.causal)
     return dq, dk, dv, None
 
 
-_flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+_flash_fwd_op.register_autograd(_backward, setup_context=save_residuals)
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = True):

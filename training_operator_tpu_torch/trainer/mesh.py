@@ -8,7 +8,7 @@ one device, so the mesh's size is the world size.
 
 Unlike the JAX `mesh_from_env`, nothing falls back: a mesh the world cannot
 fill raises, and so does an axis whose parallelism is not ported yet
-(`sequence`, `pipeline`, `expert` larger than 1).
+(`pipeline`, `expert` larger than 1).
 """
 
 from __future__ import annotations
@@ -26,8 +26,13 @@ AXIS_ORDER = ("pipeline", "data", "fsdp", "expert", "sequence", "tensor")
 # Batch dims shard over every data-parallel-like axis (the JAX BATCH_AXES).
 BATCH_AXES = ("data", "fsdp", "expert")
 
+# The axes that split a batch's tokens: its rows over BATCH_AXES, its
+# sequence over `sequence` (the JAX batch_sharding, P(BATCH_AXES,
+# "sequence")). Sums over the tokens (the loss, the gradients) run over them.
+TOKEN_AXES = BATCH_AXES + ("sequence",)
+
 # Axes whose parallelism is not ported yet, with the ROADMAP item that ports it.
-NOT_PORTED = {"sequence": 11, "pipeline": 12, "expert": 13}
+NOT_PORTED = {"pipeline": 12, "expert": 13}
 
 
 @dataclass
@@ -83,7 +88,7 @@ def build_mesh(spec: MeshSpec, device_type: str) -> DeviceMesh:
         if spec.axes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"mesh axis {axis}={spec.axes[axis]}: {axis} parallelism is not ported "
-                f"yet (ROADMAP items 11-13; this axis is item {item})"
+                f"yet (ROADMAP items 12-13; this axis is item {item})"
             )
     world = dist.get_world_size() if dist.is_initialized() else 1
     if spec.size() != world:
@@ -122,17 +127,36 @@ def batch_coordinate(mesh: DeviceMesh) -> Tuple[int, int]:
     return index, count
 
 
+def sequence_coordinate(mesh: DeviceMesh) -> Tuple[int, int]:
+    """(this rank's index, count) over `sequence`: the slice of every row's
+    positions this rank holds."""
+    return mesh.get_local_rank("sequence"), axis_size(mesh, "sequence")
+
+
+def check_sequence(seq: int, mesh: DeviceMesh) -> None:
+    count = axis_size(mesh, "sequence")
+    if seq % count:
+        raise ValueError(f"sequence of {seq} positions does not split over "
+                         f"sequence={count}")
+
+
 def shard_batch(batch: Dict[str, torch.Tensor], mesh: DeviceMesh) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global batch (every entry split on dim 0 by
-    `batch_coordinate`). Raises when the batch does not divide by the batch
-    axes."""
+    """This rank's block of a global batch: every [B, S] entry split on dim
+    0 by `batch_coordinate` and on dim 1 by `sequence_coordinate`. Raises
+    when the batch does not divide by the batch axes or its sequence by
+    `sequence`."""
     index, count = batch_coordinate(mesh)
+    s_index, s_count = sequence_coordinate(mesh)
     out = {}
     for name, t in batch.items():
         if t.shape[0] % count:
             raise ValueError(f"batch of {t.shape[0]} rows does not split over the batch "
                              f"axes {BATCH_AXES} ({count} shards)")
-        out[name] = t.chunk(count, 0)[index]
+        t = t.chunk(count, 0)[index]
+        if s_count > 1:
+            check_sequence(t.shape[1], mesh)
+            t = t.chunk(s_count, 1)[s_index]
+        out[name] = t
     return out
 
 

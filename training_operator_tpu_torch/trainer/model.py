@@ -18,13 +18,16 @@ head and loss. Mixture-of-experts and pipeline stages are not ported yet and
 raise.
 
 The sharded half (JAX `param_specs` and the mesh paths of `backbone` and
-`loss_fn`): `shard_model(model, mesh)` keeps on each rank the shard of every
-parameter that the JAX `param_specs` puts at its mesh coordinate, and
-`model.mesh` then sends the forward through the collectives of
-collectives.py. Megatron column/row products on `tensor` and the
-complementary dim on `fsdp`, each layer's fsdp shards gathered as it runs
-(and again in a recompute), a vocab-parallel head and loss, and a loss that
-is the global masked mean. The parameters stay plain tensors holding the
+`loss_fn`): `init_params(..., mesh)` builds on each rank the shard of every
+parameter that the JAX `param_specs` puts at its mesh coordinate (and
+`shard_model(model, mesh)` cuts it out of a whole model), and `model.mesh`
+then sends the forward through the collectives of collectives.py.
+Megatron column/row products on `tensor` and the complementary dim on
+`fsdp`, each layer's fsdp shards gathered as it runs (and again in a
+recompute), attention over the `sequence` axis (attention.py: ring or
+Ulysses) with RoPE at each slice's global positions, a vocab-parallel head
+and loss, and a loss that is the global masked mean over the batch axes and
+`sequence`. The parameters stay plain tensors holding the
 local shard: DTensor op dispatch on a six-axis mesh enumerates placement
 strategies per op (on torch 2.13 the backward of one tiny DTensor parameter
 took seconds), so the placements (`param_placements`) describe the layout
@@ -49,15 +52,19 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from training_operator_tpu_torch.trainer.attention import attention, takes_flash
+from training_operator_tpu_torch.trainer.attention import ATTENTION_OPS, attention
 from training_operator_tpu_torch.trainer.collectives import (
     all_reduce,
     copy_to_tensor,
     gather,
     reduce_sum,
 )
-from training_operator_tpu_torch.trainer.flash import FLASH_FWD_OP
-from training_operator_tpu_torch.trainer.mesh import AXIS_ORDER, BATCH_AXES, axis_size
+from training_operator_tpu_torch.trainer.mesh import (
+    AXIS_ORDER,
+    TOKEN_AXES,
+    axis_size,
+    sequence_coordinate,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -89,10 +96,11 @@ class TransformerConfig:
     router_aux_coef: float = 0.01
     pipeline_microbatches: int = 0
     # "auto" (flash kernels on the card where they take the dtype and
-    # head_dim), "flash", "xla" (the plain path).
+    # head_dim), "flash", "xla" (the plain path); on a sequence-sharded mesh
+    # "ring" (what any impl but "ulysses" takes there) or "ulysses".
     attn_impl: str = "auto"
     # What a layer keeps for its backward under remat (see `layer_body`):
-    # "full" (only the layer input), "save_attn" (+ the flash forward's out
+    # "full" (only the layer input), "save_attn" (+ the attention op's out
     # and lse), "save_attn_qkv" (+ the RoPE'd q, k and v), "mlp_only" (the
     # whole attention half; only the MLP half is recomputed), "save_dots"
     # (every weight product's output).
@@ -170,7 +178,7 @@ class Transformer(nn.Module):
         self.layers = DecoderLayers(c, device)
         self.ln_f = nn.Parameter(torch.empty(c.d_model, device=device))
         self.lm_head = nn.Parameter(torch.empty(c.d_model, c.vocab_size, device=device))
-        # Set by shard_model: the parameters then hold this rank's shards.
+        # Set when sharded: the parameters then hold this rank's shards.
         self.mesh: Optional[DeviceMesh] = None
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -182,14 +190,20 @@ def init_params(
     config: TransformerConfig,
     generator: Optional[torch.Generator] = None,
     device=None,
+    mesh: Optional[DeviceMesh] = None,
 ) -> Transformer:
     """Scaled-normal init in fp32 (the JAX init's distribution; the numbers
     differ, since torch's generator is not JAX's). The generator must live on
-    `device`; by default one seeded with 0."""
+    `device`; by default one seeded with 0.
+
+    Under a mesh the model is built straight into this rank's shards: each
+    parameter is drawn whole, in the unsharded order, and only its shard is
+    kept before the next is drawn. So the shards equal those of the
+    unsharded init, and the rank never holds more than its shards and one
+    whole parameter (the JAX init under `out_shardings`)."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    model = Transformer(config, device)
     c = config
     std = c.d_model ** -0.5
     resid_std = std / (2 * c.n_layers) ** 0.5
@@ -198,12 +212,31 @@ def init_params(
         "layers.wo": resid_std, "layers.w1": std, "layers.w3": std,
         "layers.w2": resid_std, "lm_head": std,
     }
-    for name, p in model.named_parameters():
+
+    def fill(name: str, p: torch.Tensor) -> torch.Tensor:
         if name in scales:
-            p.normal_(0.0, scales[name], generator=generator)
-        else:  # the norm scales
-            p.fill_(1.0)
-    return model
+            return p.normal_(0.0, scales[name], generator=generator)
+        return p.fill_(1.0)  # the norm scales
+
+    if mesh is None:
+        model = Transformer(config, device)
+        for name, p in model.named_parameters():
+            fill(name, p)
+        return model
+
+    def shard(name: str, shape) -> torch.Tensor:
+        whole = fill(name, torch.empty(shape, device=device))
+        return local_shard(name, whole, mesh).clone(memory_format=torch.contiguous_format)
+
+    return _build_sharded(config, mesh, shard)
+
+
+@torch.no_grad()
+def zeros_sharded(config: TransformerConfig, mesh: DeviceMesh, device) -> Transformer:
+    """A model holding this rank's shards, zero-filled, allocated at their
+    own size: the restore template under a mesh."""
+    return _build_sharded(config, mesh, lambda name, shape: torch.zeros(
+        local_shape(name, shape, mesh), device=resolve_device(device)))
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -258,7 +291,8 @@ def _attn_block(x, lp, config: TransformerConfig, positions, attn_impl: str,
     q, k, v = _qkv_products(x, lp, c, mesh)
     q = _rope(q, positions, c.rope_theta)
     k = _rope(k, positions, c.rope_theta)
-    return _out_projection(attention(q, k, v, causal=True, impl=attn_impl), lp, c, mesh)
+    attn = attention(q, k, v, causal=True, impl=attn_impl, mesh=mesh)
+    return _out_projection(attn, lp, c, mesh)
 
 
 def _mlp_block(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
@@ -319,24 +353,25 @@ class _NormQKV(torch.autograd.Function):
         return dx, dln, *dws, None, None
 
 
-def _save_flash_outputs(ctx, op, *args, **kwargs):
-    """save_attn: keep the flash forward op's (out, lse), JAX's "attn_out"
-    and "attn_lse"."""
-    if op is FLASH_FWD_OP:
+def _save_attention_outputs(ctx, op, *args, **kwargs):
+    """save_attn: keep the attention op's (out, lse), JAX's "attn_out" and
+    "attn_lse", on every backend (attention.ATTENTION_OPS: flash, plain,
+    ring; Ulysses runs flash or plain inside)."""
+    if op in ATTENTION_OPS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):
     """save_dots: JAX's dots_with_no_batch_dims_saveable. A weight product
-    `h @ w` reaches the dispatcher as `mm`; batched products (the plain
-    attention's einsums, `bmm`) and the flash op are recomputed."""
+    `h @ w` reaches the dispatcher as `mm`; batched products and the
+    attention ops are recomputed."""
     if op is torch.ops.aten.mm.default:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-_SELECTIVE = {"save_attn": _save_flash_outputs, "save_dots": _save_weight_products}
+_SELECTIVE = {"save_attn": _save_attention_outputs, "save_dots": _save_weight_products}
 
 
 def layer_body(config: TransformerConfig, positions,
@@ -346,16 +381,16 @@ def layer_body(config: TransformerConfig, positions,
     gathered inside the checkpointed region, so a recompute gathers again:
 
     - "full": the whole layer under `checkpoint`; backward recomputes it,
-      the flash forward included (2 forward launches per layer and step).
+      the attention forward included (2 forward launches per layer and
+      step; the ring exchanges its blocks again).
     - "save_attn", "save_dots": the whole layer under `checkpoint` with a
-      selective policy: the flash op's outputs, or every weight product's,
-      are kept and not recomputed.
+      selective policy: the attention op's outputs, or every weight
+      product's, are kept and not recomputed.
     - "save_attn_qkv": attention runs outside the checkpoint. The qkv
       products keep only their inputs (`_NormQKV`); RoPE keeps only its
-      cos/sin; the flash op keeps (q, k, v, out, lse), as JAX keeps the names
-      attn_q/k/v and attn_out/lse. The plain attention path is checkpointed
-      on its own, keeping q, k, v and its output. Output projection and MLP
-      are recomputed under `checkpoint`.
+      cos/sin; the attention op, whichever the backend, keeps (q, k, v,
+      out, lse), as JAX keeps the names attn_q/k/v and attn_out/lse.
+      Output projection and MLP are recomputed under `checkpoint`.
     - "mlp_only": attention outside the checkpoint, unchanged; only the MLP
       half is recomputed.
     """
@@ -375,10 +410,7 @@ def layer_body(config: TransformerConfig, positions,
             q, k, v = _NormQKV.apply(x, lp["ln1"], *weights, c, mesh)
             q = _rope(q, positions, c.rope_theta)
             k = _rope(k, positions, c.rope_theta)
-            if takes_flash(q, impl):
-                attn = attention(q, k, v, causal=True, impl=impl)
-            else:
-                attn = checkpoint(attention, q, k, v, True, impl, use_reentrant=False)
+            attn = attention(q, k, v, causal=True, impl=impl, mesh=mesh)
             return checkpoint(_out_and_mlp, x, attn, lp, c, mesh, use_reentrant=False)
         return body
     if policy != "full" and policy not in _SELECTIVE:
@@ -395,17 +427,21 @@ def backbone(model: Transformer, tokens: torch.Tensor,
              config: Optional[TransformerConfig] = None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, D]. `config`
     overrides the model's own (same shapes; e.g. another attn_impl). Under
-    a mesh, tokens and hidden states are this rank's rows of the batch."""
+    a mesh, tokens and hidden states are this rank's rows of the batch and
+    its slice of the sequence, and RoPE takes the slice's global positions
+    (the JAX `_rope` docstring)."""
     c = config or model.config
     mesh = model.mesh
     b, s = tokens.shape
+    offset = 0 if mesh is None else sequence_coordinate(mesh)[0] * s
     embed = model.embed
     if mesh is not None:
         # The whole table before the row gather, as the JAX backbone
         # replicates it explicitly.
         embed = gather(embed, mesh, 1, PARAM_SPECS["embed"][1])
     x = embed.to(c.dtype)[tokens.long()]
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    positions = torch.arange(offset, offset + s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
     body = layer_body(c, positions, mesh)
     for lp in model.layers.unbind():
         x = body(x, lp)
@@ -451,9 +487,10 @@ def _head_nll(x, lm_head, targets, mesh: Optional[DeviceMesh] = None):
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
             config: Optional[TransformerConfig] = None) -> torch.Tensor:
     """Mean next-token cross-entropy; `batch` = {tokens, targets, mask}.
-    Under a mesh the batch is this rank's rows, and the loss is the masked
-    mean over the global batch on every rank: the sums of nll*mask and of
-    the mask are each summed over the batch axes before the division."""
+    Under a mesh the batch is this rank's rows and sequence slice, and the
+    loss is the masked mean over the global batch on every rank: the sums
+    of nll*mask and of the mask are each summed over the batch axes and
+    `sequence` before the division."""
     config = config or model.config
     mesh = model.mesh
     x = backbone(model, batch["tokens"], config)
@@ -469,8 +506,8 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    total = reduce_sum((nll * mask).sum(), mesh, BATCH_AXES)
-    count = all_reduce(mask.sum(), mesh, BATCH_AXES)
+    total = reduce_sum((nll * mask).sum(), mesh, TOKEN_AXES)
+    count = all_reduce(mask.sum(), mesh, TOKEN_AXES)
     return total / torch.clamp(count, min=1.0)
 
 
@@ -529,20 +566,65 @@ def param_placements(name: str) -> list:
     return out
 
 
+def _shard_index(name: str, dim: int, mesh: DeviceMesh) -> Tuple[int, int]:
+    """(this rank's block, block count) of parameter `name`'s dim `dim`."""
+    index, count = 0, 1
+    for axis in PARAM_SPECS[name][dim]:
+        index = index * axis_size(mesh, axis) + mesh.get_local_rank(axis)
+        count *= axis_size(mesh, axis)
+    return index, count
+
+
+def local_shape(name: str, shape, mesh: DeviceMesh) -> Tuple[int, ...]:
+    """The shape of this rank's shard of parameter `name` (whole `shape`)."""
+    out = []
+    for dim, size in enumerate(shape):
+        _, count = _shard_index(name, dim, mesh)
+        if size % count:
+            raise ValueError(f"{name} dim {dim} of size {size} does not split "
+                             f"over {PARAM_SPECS[name][dim]} ({count} shards)")
+        out.append(size // count)
+    return tuple(out)
+
+
 def local_shard(name: str, full: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     """The block of `full` that the JAX sharding of parameter `name` puts at
     this rank's mesh coordinate."""
+    local_shape(name, full.shape, mesh)  # raises where a dim does not split
     out = full
-    for dim, axes in enumerate(PARAM_SPECS[name]):
-        index, count = 0, 1
-        for axis in axes:
-            index = index * axis_size(mesh, axis) + mesh.get_local_rank(axis)
-            count *= axis_size(mesh, axis)
-        if full.shape[dim] % count:
-            raise ValueError(f"{name} dim {dim} of size {full.shape[dim]} does not split "
-                             f"over {axes} ({count} shards)")
+    for dim in range(full.dim()):
+        index, count = _shard_index(name, dim, mesh)
         out = out.chunk(count, dim)[index]
     return out
+
+
+def _check_mesh(config: TransformerConfig, mesh) -> None:
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"sharding needs a DeviceMesh (mesh.build_mesh), not {mesh!r}")
+    # The JAX attention falls back to its unsharded path where the heads do
+    # not split over `tensor`; the port raises.
+    tensor = axis_size(mesh, "tensor")
+    for what, n in (("n_heads", config.n_heads), ("n_kv_heads", config.n_kv_heads)):
+        if n % tensor:
+            raise ValueError(f"{what}={n} does not split over tensor={tensor}")
+
+
+def _build_sharded(config: TransformerConfig, mesh: DeviceMesh,
+                   make: Callable[[str, Tuple[int, ...]], torch.Tensor]) -> Transformer:
+    """A sharded model whose parameter `name` is `make(name, whole shape)`,
+    made one parameter after another in the model's order; nothing whole is
+    allocated here."""
+    _check_mesh(config, mesh)
+    model = Transformer(config, "meta")
+    for name, p in list(model.named_parameters()):
+        _set_param(model, name, make(name, tuple(p.shape)))
+    model.mesh = mesh
+    return model
+
+
+def _set_param(model: Transformer, name: str, value: torch.Tensor) -> None:
+    owner = model.layers if name.startswith("layers.") else model
+    setattr(owner, name.split(".")[-1], nn.Parameter(value))
 
 
 @torch.no_grad()
@@ -550,31 +632,24 @@ def shard_model(model: Transformer, mesh: DeviceMesh) -> Transformer:
     """Replaces every parameter of an unsharded model by this rank's shard
     (`local_shard`; a copy, so the full tensors can be freed) and sends the
     forward through the mesh. The batch given to `loss_fn` is then this
-    rank's rows (mesh.shard_batch)."""
-    if not isinstance(mesh, DeviceMesh):
-        raise TypeError(f"shard_model needs a DeviceMesh (mesh.build_mesh), not {mesh!r}")
+    rank's rows and sequence slice (mesh.shard_batch)."""
+    _check_mesh(model.config, mesh)
     if model.mesh is not None:
         raise ValueError("the model is sharded already")
-    # The JAX attention falls back to its unsharded path where the heads do
-    # not split over `tensor`; the port raises.
-    c, tensor = model.config, axis_size(mesh, "tensor")
-    for what, n in (("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads)):
-        if n % tensor:
-            raise ValueError(f"{what}={n} does not split over tensor={tensor}")
     for name, p in list(model.named_parameters()):
-        owner = model.layers if name.startswith("layers.") else model
         local = local_shard(name, p.detach(), mesh).clone(memory_format=torch.contiguous_format)
-        setattr(owner, name.split(".")[-1], nn.Parameter(local))
+        _set_param(model, name, local)
     model.mesh = mesh
     return model
 
 
 @torch.no_grad()
 def reduce_gradients(model: Transformer) -> None:
-    """After backward on a sharded model: sums each gradient over the batch
-    axes that do not shard its parameter (the fsdp sums already happened
-    in the gathers' backward), as the data-parallel all-reduce."""
+    """After backward on a sharded model: sums each gradient over the axes
+    that split the tokens (the batch axes and `sequence`) and do not shard
+    its parameter (the fsdp sums already happened in the gathers'
+    backward), as the data-parallel all-reduce."""
     mesh = model.mesh
     for name, p in model.named_parameters():
-        axes = [a for a in BATCH_AXES if a not in spec_axes(name)]
+        axes = [a for a in TOKEN_AXES if a not in spec_axes(name)]
         all_reduce(p.grad, mesh, axes)

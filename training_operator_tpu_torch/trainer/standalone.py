@@ -4,26 +4,34 @@ Counterpart of examples/trainer_standalone.py:
 
     python -m training_operator_tpu_torch.trainer.standalone [--steps N]
         [--seq-len S] [--batch-size B] [--checkpoint-dir DIR] [--resume]
-        [--device cpu]
+        [--device cpu] [--local-workers N]
 
 It reads the bootstrap env the operator injects (COORDINATOR_ADDRESS,
 COORDINATOR_PORT, NUM_PROCESSES, PROCESS_ID, TPU_MESH_AXES,
-MODEL_EXPORT_URI). With a coordinator address or more than one process it
-joins the process group (distributed.initialize: one process per card,
+MODEL_EXPORT_URI). The operator runs one such process per pod; it starts
+one worker process per local card (`--local-workers`, by default every
+card of the pod; 1 with `--device cpu`), each with its rank in the world of
+workers (distributed.worker_env) and its card `cuda:i`; one worker runs in
+the process itself. With a coordinator address or more than one worker in
+the world, each worker joins the process group (distributed.initialize,
 gloo with `--device cpu`), builds the mesh (mesh_from_env) and trains the
 state sharded on it; `--batch-size` is the global batch. It resumes from the
 newest checkpoint whenever one exists, onto this run's mesh, runs
-`train_loop` and exports the final step from process 0. It runs on the card
+`train_loop` and exports the final step from worker 0. It runs on the card
 unless `--device cpu` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import multiprocessing
+import multiprocessing.connection
 import os
+import socket
+import sys
 import tempfile
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -132,7 +140,9 @@ def standalone_config(seq_len: int) -> TransformerConfig:
                              d_ff=688, max_seq_len=seq_len)
 
 
-def main(argv=None) -> TrainState:
+def main(argv=None) -> Optional[TrainState]:
+    """Runs the pod's workers; returns the trained state of a pod of one
+    worker (None when it started several)."""
     ap = argparse.ArgumentParser(prog="python -m training_operator_tpu_torch.trainer.standalone")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -141,15 +151,81 @@ def main(argv=None) -> TrainState:
                     default=os.path.join(tempfile.gettempdir(), "trainer-ckpt"))
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--local-workers", type=int, default=None,
+                    help="worker processes in this pod, one per card (default: the "
+                         "pod's cards; 1 with --device cpu)")
     args = ap.parse_args(argv)
 
-    _, nproc = process_shard()
     device = resolve_device(args.device)
+    local = args.local_workers
+    if local is None:
+        local = torch.cuda.device_count() if device.type == "cuda" else 1
+    if local < 1:
+        raise ValueError(f"--local-workers {local}: a pod runs at least one worker")
+    env = dict(os.environ)
+    if local == 1:
+        return _worker(args, device, distributed.worker_env(env, 1, 0))
+    if not env.get("COORDINATOR_ADDRESS") and int(env.get("NUM_PROCESSES", "1")) == 1:
+        # One pod alone: its workers meet on this host.
+        env.update(COORDINATOR_ADDRESS="127.0.0.1", COORDINATOR_PORT=str(_free_port()))
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+    for i in range(local):
+        worker_device = str(torch.device(device.type, i) if device.type == "cuda" else device)
+        procs.append(ctx.Process(target=_pod_worker,
+                                 args=(args, worker_device, distributed.worker_env(env, local, i))))
+    _run_workers(procs)
+    return None
+
+
+def _say(*parts) -> None:
+    """print, as one write: the workers of a pod share its stdout, and an
+    unbuffered print writes its pieces apart, which interleave."""
+    sys.stdout.write(" ".join(str(p) for p in parts) + "\n")
+    sys.stdout.flush()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_workers(procs) -> None:
+    """Starts the pod's workers and waits for them; when one fails, the
+    others are stopped (they would wait for it in a collective) and the
+    pod fails."""
+    for p in procs:
+        p.start()
+    try:
+        running = list(procs)
+        while running:
+            multiprocessing.connection.wait([p.sentinel for p in running])
+            for p in [p for p in running if not p.is_alive()]:
+                running.remove(p)
+                if p.exitcode != 0:
+                    raise SystemExit(f"worker {procs.index(p)} of {len(procs)} exited with "
+                                     f"code {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def _pod_worker(args, device: str, environ: Dict[str, str]) -> None:
+    _worker(args, torch.device(device), environ)
+
+
+def _worker(args, device: torch.device, environ: Mapping[str, str]) -> TrainState:
+    """One worker: `environ` is its bootstrap env (distributed.worker_env)."""
+    os.environ.update(environ)
+    _, nproc = process_shard()
     mesh = None
     if os.environ.get("COORDINATOR_ADDRESS") or nproc > 1:
         device = distributed.initialize(device=device)
         mesh = mesh_from_env(device.type)
-        print("mesh:", mesh_shape(mesh))
+        _say("mesh:", mesh_shape(mesh))
     state = _train(args, device, mesh)
     distributed.shutdown()
     return state
@@ -166,7 +242,7 @@ def _train(args, device: torch.device, mesh) -> TrainState:
     ))
     if args.resume or have_ckpt:
         state = restore_into_mesh(args.checkpoint_dir, config, optimizer, mesh, device=device)
-        print("resumed at step", state.step)
+        _say("resumed at step", state.step)
     else:
         state = init_train_state(config, optimizer, device=device, mesh=mesh)
 
@@ -176,12 +252,12 @@ def _train(args, device: torch.device, mesh) -> TrainState:
                                      num_rows=args.batch_size * 8)
     loader = DataLoader(dataset, args.batch_size, device=device, mesh=mesh)
     ckpt = Checkpointer(args.checkpoint_dir, save_interval_steps=10)
-    stats = train_loop(config, optimizer, state, loader, args.steps, ckpt)
+    stats = train_loop(config, optimizer, state, loader, args.steps, ckpt, log=_say)
     ckpt.close()
     exported = export_final(args.checkpoint_dir, stats["done"])
     if exported:
-        print("exporting to", exported)
-    print("done at step", stats["done"])
+        _say("exporting to", exported)
+    _say("done at step", stats["done"])
     return state
 
 

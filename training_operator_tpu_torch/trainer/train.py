@@ -18,9 +18,11 @@ Where JAX donates the state to the jitted step, the port updates the
 parameters and moments in place.
 
 Under a mesh (JAX `train.py:56-174`) the state holds this rank's shards
-(model.shard_model) and the moments are shards of the same layout. The step
-sums the gradients over the batch axes (model.reduce_gradients), takes the
-global norm with each element counted once, and runs clip and AdamW
+(built straight into the shards, model.init_params) and the moments are
+shards of the same layout. The step sums the gradients over the batch axes
+and `sequence` (model.reduce_gradients), takes the global norm with each
+element counted once (`sequence`, like `data`, replicates every
+parameter), and runs clip and AdamW
 elementwise on the local shards with the same count and lr on every rank.
 """
 
@@ -44,8 +46,8 @@ from training_operator_tpu_torch.trainer.model import (
     param_shapes,
     reduce_gradients,
     resolve_device,
-    shard_model,
     spec_axes,
+    zeros_sharded,
 )
 
 
@@ -161,12 +163,11 @@ def init_train_state(config: TransformerConfig, optimizer: AdamW,
                      device=None, mesh: Optional[DeviceMesh] = None) -> TrainState:
     """Params from `init_params` (generator seeded 0 by default) and zero
     moments, on the card unless `device` says otherwise. Under a mesh every
-    rank draws the same full parameters and keeps its shards; the moments
-    take the same layout."""
+    rank draws the same parameters one at a time and keeps only its shard
+    of each (the shards of the unsharded init, never the whole model); the
+    moments take the same layout."""
     device = resolve_device(device)
-    model = init_params(config, generator, device)
-    if mesh is not None:
-        shard_model(model, mesh)
+    model = init_params(config, generator, device, mesh)
     return TrainState(step=0, model=model,
                       opt_state=optimizer.init(dict(model.named_parameters())))
 
@@ -176,14 +177,16 @@ def template_train_state(config: TransformerConfig, optimizer: AdamW,
     """A zero-filled TrainState, the checkpoint-restore target: no generator
     and no init compute (a restore overwrites every value; only shapes,
     dtypes, the device and the mesh layout matter). On the card unless
-    `device` says otherwise."""
+    `device` says otherwise. Under a mesh only this rank's shards are
+    allocated."""
     device = resolve_device(device)
-    model = Transformer(config, device)
-    with torch.no_grad():
-        for p in model.parameters():
-            p.zero_()
     if mesh is not None:
-        shard_model(model, mesh)
+        model = zeros_sharded(config, mesh, device)
+    else:
+        model = Transformer(config, device)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.zero_()
     return TrainState(step=0, model=model,
                       opt_state=optimizer.init(dict(model.named_parameters())))
 
