@@ -61,7 +61,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 7. dryrun   graft_entry.dryrun_multichip(8) on the host CPU: 8 gloo
             processes, each pass's sharded loss within 5e-3 of the
             single-process loss (pass 1 on tensor=2,sequence=2,fsdp=2: the
-            ring over gloo); a CPU phase, its seconds are host seconds.
+            ring over gloo; pass 2 on pipeline=2,expert=2,tensor=2 with 2
+            experts and 2 microbatches: the GPipe schedule and the MoE
+            all-to-all over gloo; pass 3 multi-slice data=2,fsdp=2,tensor=2);
+            a CPU phase, its seconds are host seconds.
 8. ring     the ring attention's per-rank body (attention.ring_forward and
             ring_backward) through the loopback transport: the NS ranks of
             the ring run one after another on the card, each taking its K/V
@@ -77,9 +80,39 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             launches, NS of each causal (the diagonal blocks). Each case is
             timed in CUDA events beside the unsplit flash forward + backward
             at the same shape.
+9. moe      the flagship at full width with a switch MoE of 8 experts at
+            capacity factor 1.25 in every layer (bench.moe_config, 2.93B
+            parameters), unsharded, batch 8 x seq 2048, bf16, remat
+            "save_attn_qkv" + the head: 1 warm-up step and 5 timed steps,
+            12/12/12 launches per step (counts reset just before). The
+            step-0 loss within 1e-4 of the same parameters and batch through
+            the plain attention path (phase 4's gate); every loss finite;
+            before step 0 every expert of every layer receives tokens
+            (bench.moe_routing). The plain path runs with each layer's
+            routing pinned to the flash path's (`routing_gap`): top-1
+            routing sends a near-tied token to another expert on a
+            last-bit difference of the hidden state, which moves the loss
+            by more than the attention paths' own gap (2.3e-4 unpinned on
+            an H100 80GB HBM3 at 700 W); the unpinned loss and the count of
+            tokens routed elsewhere are printed. Prints ms/step, tokens/s,
+            MFU on active parameters (bench.FLOPS_RULE), peak memory (reset
+            after phase 8), the dropped-token share and the per-expert
+            token shares.
+10. pipeline the dense flagship as 2 GPipe stages with 4 microbatches of
+            2 x 2048 through the loopback transport (pipeline.loopback: the
+            stages run one after another on the card): the step-0 loss
+            within 1e-4 relative of the unpipelined loss on the same
+            parameters and batch, and every parameter's gradient within
+            GRAD_REL_TOL in relative Frobenius norm (phase 4's gates;
+            microbatching changes the products' row counts and so their
+            bf16 rounding); then 1 warm-up step and 5 timed steps, 48/48/48
+            launches per step (12 layers x 4 microbatches). Prints ms/step
+            beside phase 4's: on one card this is the cost of the schedule
+            and of the smaller launches, not a bubble or a hand-off (NCCL
+            cannot put two ranks on one card).
 
 The last lines are the `kernels` JSON line (each kernel's row with its
-launches in phases 4, 6 and 8), the card's name and power limit, and
+launches in phases 4, 6, 8, 9 and 10), the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
 
 Tolerances, bf16 kernel against the plain version in fp32 on the same bf16
@@ -550,6 +583,193 @@ def run_mesh(config, batch, seq, card, phase4) -> dict:
                 os.environ[k] = v
 
 
+def timed_steps(step_fn, state, batches, per_step, label):
+    """Runs `step_fn` over `batches`: each step must launch `per_step` of
+    each kernel and give a finite loss and norm. Returns (state, losses,
+    device ms of each step after the first)."""
+    import torch
+
+    from training_operator_tpu_torch.trainer import flash
+
+    losses, times = [], []
+    for i, data in enumerate(batches):
+        before = dict(flash.launches)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step_fn(state, data)
+        end.record()
+        loss = metrics["loss"].item()
+        ms = start.elapsed_time(end)
+        grew = {n: flash.launches[n] - before[n] for n in per_step}
+        if grew != per_step:
+            raise AssertionError(f"{label} step {i}: launches grew by {grew}, expected {per_step}")
+        if not torch.isfinite(metrics["loss"]) or not torch.isfinite(metrics["grad_norm"]):
+            raise AssertionError(f"{label} step {i}: non-finite loss or grad norm: {metrics}")
+        losses.append(loss)
+        if i > 0:
+            times.append(ms)
+        log(f"{label}: step {i} loss {loss:.6f} grad_norm {metrics['grad_norm'].item():.6f} "
+            f"{ms:.2f} ms device" + (" (warm-up)" if i == 0 else ""))
+    return state, losses, times
+
+
+def example_batches(config, batch, seq, n):
+    from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset
+
+    dataset = TokenDataset.synthetic(config.vocab_size, seq, num_rows=batch * 2, seed=0)
+    loader = DataLoader(dataset, batch_size=batch, shuffle=True, seed=0)
+    return [b for e in range(n) for b in loader.epoch(e)][:n]
+
+
+def routing_gap(model, batch, config):
+    """Forward losses of a MoE model on `batch` (no grad): through the
+    flash kernels, through the plain attention path, and through the plain
+    path with every layer's routing pinned to the flash run's (moe.route's
+    `choice`); and per layer how many tokens the plain path sends to
+    another expert. Top-1 routing is discontinuous: the two attention
+    paths differ in bf16's last bits, which moves near-tied tokens to
+    other experts, each a different MLP; the pinned loss holds the
+    attention paths to one routing, as phase 4's gate holds them in a
+    dense model."""
+    import torch
+
+    from training_operator_tpu_torch.trainer import moe
+    from training_operator_tpu_torch.trainer.model import loss_fn
+
+    original, recorded, flips = moe.route, [], []
+
+    def record(h, router, cfg, mesh=None, choice=None):
+        out = original(h, router, cfg, mesh, choice)
+        recorded.append(out[0])
+        return out
+
+    def replay(h, router, cfg, mesh=None, choice=None):
+        pinned = recorded.pop(0)
+        flips.append(int((original(h, router, cfg, mesh)[0] != pinned).sum()))
+        return original(h, router, cfg, mesh, pinned)
+
+    plain = dataclasses.replace(config, attn_impl="xla")
+    try:
+        with torch.no_grad():
+            moe.route = record
+            flash_loss = loss_fn(model, batch, config).item()
+            moe.route = original
+            plain_loss = loss_fn(model, batch, plain).item()
+            moe.route = replay
+            pinned_loss = loss_fn(model, batch, plain).item()
+    finally:
+        moe.route = original
+    return flash_loss, plain_loss, pinned_loss, flips
+
+
+def run_moe(card) -> dict:
+    """Phase 9; see the module docstring. Raises on any failed check and
+    returns the launch counts of its steps."""
+    import torch
+
+    from training_operator_tpu_torch.trainer import bench, flash
+    from training_operator_tpu_torch.trainer.model import loss_fn
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    config, batch, seq = bench.moe_config()
+    optimizer = make_optimizer(warmup_steps=1, total_steps=100)
+    state = init_train_state(config, optimizer)
+    step_fn = make_train_step(config, optimizer)
+    total, active = bench._count_params(state.model)
+    batches = example_batches(config, batch, seq, 6)
+    flash_loss, plain_loss, pinned_loss, flips = routing_gap(state.model, batches[0], config)
+    routing = bench.moe_routing(state.model, batches[0]["tokens"])
+    starved = [(layer, e) for layer, shares in enumerate(routing["expert_shares"])
+               for e, share in enumerate(shares) if share == 0]
+    if starved:
+        raise AssertionError(f"moe: (layer, expert) with no tokens at step 0: {starved}")
+    per_step = {n: config.n_layers for n in flash.launches}
+    flash.reset_launches()
+    state, losses, times = timed_steps(step_fn, state, batches, per_step, "moe")
+    launches = dict(flash.launches)
+    if abs(losses[0] - pinned_loss) > 1e-4:
+        raise AssertionError(f"moe step-0 loss {losses[0]} vs plain-attention loss "
+                             f"{pinned_loss} on the same routing")
+    step_ms = sum(times) / len(times)
+    mfu = bench.flops_per_step(config, active, batch, seq) / (step_ms / 1e3) \
+        / bench.PEAK_BF16_FLOPS["H100"]
+    log(f"moe: {total / 1e6:.1f}M params ({active / 1e6:.1f}M active in products), "
+        f"{config.n_experts} experts at capacity {config.expert_capacity}, batch {batch} x "
+        f"seq {seq}, {config.dtype}; step-0 loss flash {losses[0]:.6f} (no-grad forward "
+        f"{flash_loss:.6f}), plain attention on the flash run's routing {pinned_loss:.6f}, "
+        f"on its own routing {plain_loss:.6f} (tokens routed elsewhere per layer: {flips}); "
+        f"{step_ms:.2f} ms/step (mean of {len(times)}), "
+        f"{batch * seq / (step_ms / 1e3):.1f} tokens/s, MFU {mfu:.4f} of 989 TFLOP/s bf16 "
+        f"[{bench.FLOPS_RULE}], peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+        f"launches {launches} on {card}")
+    log("moe: step 0 routing, dropped share per layer "
+        + json.dumps([round(x, 6) for x in routing["dropped_share"]])
+        + "; expert shares per layer "
+        + json.dumps([[round(x, 6) for x in row] for row in routing["expert_shares"]]))
+    del state, step_fn, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_pipeline(card, phase4) -> dict:
+    """Phase 10; see the module docstring. Raises on any failed check and
+    returns the launch counts of its steps."""
+    import torch
+
+    from training_operator_tpu_torch.trainer import bench, flash, pipeline
+    from training_operator_tpu_torch.trainer.model import loss_fn
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    config, batch, seq, stages = bench.pipeline_config()
+    optimizer = make_optimizer(warmup_steps=1, total_steps=100)
+    state = init_train_state(config, optimizer)
+    step_fn = make_train_step(config, optimizer)
+    batches = example_batches(config, batch, seq, 6)
+    model = state.model
+
+    def loss_and_grads():
+        loss = loss_fn(model, batches[0], config)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return loss.item(), grads
+
+    flat_loss, flat_grads = loss_and_grads()
+    pipeline.loopback(model, stages)
+    pipe_loss, pipe_grads = loss_and_grads()
+    errs = {n: rel_frobenius(pipe_grads[n], flat_grads[n]) for n in flat_grads}
+    worst = max(errs, key=errs.get)
+    del flat_grads, pipe_grads
+    if not abs(pipe_loss - flat_loss) <= 1e-4 * abs(flat_loss) or errs[worst] > GRAD_REL_TOL:
+        raise AssertionError(f"pipeline vs unpipelined: loss {pipe_loss} vs {flat_loss}, "
+                             f"gradient errors {errs}")
+    log(f"pipeline: {stages} loopback stages x {config.pipeline_microbatches} microbatches of "
+        f"{batch // config.pipeline_microbatches} x {seq}; step-0 loss {pipe_loss:.6f} "
+        f"(unpipelined {flat_loss:.6f}); worst gradient {worst} {errs[worst]:.3e} relative")
+    per_step = {n: config.n_layers * config.pipeline_microbatches for n in flash.launches}
+    flash.reset_launches()
+    state, losses, times = timed_steps(step_fn, state, batches, per_step, "pipeline")
+    launches = dict(flash.launches)
+    step_ms = sum(times) / len(times)
+    log(f"pipeline: {step_ms:.2f} ms/step (mean of {len(times)}; phase 4 unpipelined "
+        f"{phase4['step_ms']:.2f}): the two stages run one after another on one card, so this "
+        f"is the schedule's and the smaller launches' cost, not a bubble or a hand-off (NCCL "
+        f"cannot put two ranks on one card); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {launches} on {card}")
+    del state, step_fn, batches, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -716,9 +936,21 @@ def main() -> int:
         f"host wall (CPU): " + "; ".join(f"{p['mesh']}" for p in passes))
     if graft_entry._pass1_axes(8).get("sequence") != 2 or passes[0]["mesh"]["sequence"] != 2:
         raise AssertionError(f"dryrun pass 1 ran on {passes[0]['mesh']}, not sequence=2")
+    if len(passes) != 3 or (passes[1]["mesh"]["pipeline"], passes[1]["mesh"]["expert"]) != (2, 2):
+        raise AssertionError(f"dryrun ran {[p['mesh'] for p in passes]}: no pass 2 on "
+                             "pipeline=2,expert=2")
 
     # 8. ring
     ring_launches = run_ring(card)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 9. moe
+    moe_launches = run_moe(card)
+    torch.cuda.reset_peak_memory_stats()
+
+    # 10. pipeline
+    pipeline_launches = run_pipeline(card, phase4)
 
     # report
     sources = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",
@@ -745,6 +977,8 @@ def main() -> int:
             "launches": train_launches[name],
             "launches_mesh": mesh_launches[name],
             "launches_ring": ring_launches[name],
+            "launches_moe": moe_launches[name],
+            "launches_pipeline": pipeline_launches[name],
             "max_abs_err": err_of[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -224,3 +224,64 @@ def test_loopback_ring_matches_plain(card, ns, causal):
         floor = 1e-2 * r.square().mean().sqrt()
         worst = ((g - r).abs() / (row_rms + r.abs() + floor)).max().item()
         assert worst <= 2e-2, (name, worst)
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(card):
+    """The switch MoE layer (bf16, 4 experts, a router column forced so one
+    expert overflows) on the card equals it on the CPU: the same kept
+    tokens, the outputs within the CPU test's bf16 tolerance against JAX
+    (2e-2 of the largest output), the aux within 1e-5."""
+    from training_operator_tpu_torch.trainer import moe
+    from training_operator_tpu_torch.trainer.model import TransformerConfig
+
+    config = TransformerConfig(vocab_size=256, d_model=64, n_layers=1, n_heads=4,
+                               n_kv_heads=4, d_ff=96, n_experts=4)
+    g = torch.Generator().manual_seed(0)
+    h = (torch.randn(2, 32, 64, generator=g) + 1.0).to(torch.bfloat16)
+    router = torch.randn(64, 4, generator=g) * 0.3
+    router[:, 2] += 8.0
+    experts = {"w1": torch.randn(4, 64, 96, generator=g) * 0.1,
+               "w3": torch.randn(4, 64, 96, generator=g) * 0.1,
+               "w2": torch.randn(4, 96, 64, generator=g) * 0.1}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        args = [x.to(dev) for x in (h, router)]
+        out, aux = moe.moe_mlp(*args, {k: w.to(dev) for k, w in experts.items()}, config)
+        outs[dev] = (out.float().cpu(), aux.item(), moe.route(*args, config)[3].cpu())
+    (want, want_aux, want_keep), (got, aux, keep) = outs["cpu"], outs["cuda"]
+    assert torch.equal(keep, want_keep) and not bool(keep.all())
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+    assert abs(aux - want_aux) <= 1e-5 * abs(want_aux)
+
+
+@pytest.mark.parametrize("n_experts", [0, 4])
+def test_loopback_pipeline_on_the_card(card, n_experts):
+    """A 4-layer decoder (head_dim 128) as 2 loopback stages x 2
+    microbatches: one step launches each kernel once per layer and
+    microbatch, and gives the loss of the same parameters unpipelined for
+    the dense model (1e-3 relative: bf16 products of other row counts)."""
+    from training_operator_tpu_torch.trainer import pipeline
+    from training_operator_tpu_torch.trainer.model import TransformerConfig, loss_fn
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_example_batch,
+        make_optimizer,
+        make_train_step,
+    )
+
+    config = TransformerConfig(vocab_size=512, d_model=256, n_layers=4, n_heads=2,
+                               n_kv_heads=2, d_ff=512, n_experts=n_experts,
+                               pipeline_microbatches=2, remat_policy="save_attn_qkv")
+    optimizer = make_optimizer(warmup_steps=1, total_steps=10)
+    state = init_train_state(config, optimizer)
+    batch = make_example_batch(config, 4, 256)
+    with torch.no_grad():
+        flat = loss_fn(state.model, batch).item()
+    pipeline.loopback(state.model, 2)
+    flash.reset_launches()
+    state, metrics = make_train_step(config, optimizer)(state, batch)
+    per = config.n_layers * config.pipeline_microbatches
+    assert flash.launches == {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    if not n_experts:
+        assert abs(metrics["loss"].item() - flat) <= 1e-3 * abs(flat)

@@ -1,5 +1,5 @@
 """Rank bodies for the port's multi-process tests (test_torch_mesh.py,
-test_torch_seq.py).
+test_torch_seq.py, test_torch_moe.py, test_torch_pipeline.py).
 
 Each function runs in every rank of a gloo CPU world started by
 `training_operator_tpu_torch.trainer.distributed.spawn`, which imports this
@@ -30,15 +30,16 @@ from training_operator_tpu_torch.trainer.mesh import (
 )
 from training_operator_tpu_torch.trainer.collectives import all_gather
 from training_operator_tpu_torch.trainer.model import (
-    PARAM_SPECS,
     Transformer,
     TransformerConfig,
     init_params,
     local_shard,
     loss_fn,
     param_shapes,
+    reduce_gradients,
     shard_model,
 )
+from training_operator_tpu_torch.trainer.moe import moe_mlp, route
 from training_operator_tpu_torch.trainer.train import (
     TrainState,
     init_train_state,
@@ -64,11 +65,12 @@ def sharded_state(config: TransformerConfig, params: Dict, mesh) -> TrainState:
                       opt_state=optimizer().init(dict(model.named_parameters())))
 
 
-def gather_shard(name: str, local: torch.Tensor, mesh) -> torch.Tensor:
+def gather_shard(name: str, local: torch.Tensor, mesh, specs) -> torch.Tensor:
     """The whole of parameter `name` (or of a moment laid out like it) from
-    every rank's shard: the inverse of model.local_shard, collective."""
+    every rank's shard laid out by `specs`: the inverse of
+    model.local_shard, collective."""
     out = local
-    for dim, axes in enumerate(PARAM_SPECS[name]):
+    for dim, axes in enumerate(specs[name]):
         for axis in reversed(axes):  # the minor axis first
             out = all_gather(out, mesh, axis, dim)
     return out.clone(memory_format=torch.contiguous_format)
@@ -82,8 +84,8 @@ def gathered(state: TrainState) -> Dict[str, np.ndarray]:
     for name, p in state.model.named_parameters():
         for kind, t in (("params", p.detach()), ("mu", state.opt_state.mu[name]),
                         ("nu", state.opt_state.nu[name])):
-            out[f"{kind}.{name}"] = (t.clone() if mesh is None
-                                     else gather_shard(name, t, mesh)).numpy()
+            out[f"{kind}.{name}"] = (t.clone() if mesh is None else gather_shard(
+                name, t, mesh, state.model.specs)).numpy()
     return out
 
 
@@ -96,7 +98,7 @@ def train(state: TrainState, config: TransformerConfig, batches: List[Dict]) -> 
     for b in batches:
         b = {k: torch.from_numpy(v) for k, v in b.items()}
         if mesh is not None:
-            b = shard_batch(b, mesh)
+            b = shard_batch(b, mesh, config.pipeline_microbatches)
         state, m = step(state, b)
         out.append((m["loss"].item(), m["grad_norm"].item()))
     return out
@@ -189,7 +191,8 @@ def init_footprint(config: TransformerConfig, mesh) -> Dict:
     out["largest"] = max(int(np.prod(s)) * 4 for s in param_shapes(config).values())
     state = init_train_state(config, optimizer(), torch.Generator().manual_seed(0), "cpu", mesh)
     full = init_params(config, torch.Generator().manual_seed(0), "cpu")
-    out["equal"] = all(torch.equal(p, local_shard(n, full.get_parameter(n), mesh))
+    out["equal"] = all(torch.equal(p, local_shard(n, full.get_parameter(n), mesh,
+                                                  state.model.specs))
                        for n, p in state.model.named_parameters())
     return out
 
@@ -356,4 +359,116 @@ def seq_world(cases: Dict, configs: Dict[str, TransformerConfig], params: Dict,
         finally:
             setattr(pt_attention, fn, original)
     out["fsdp4"] = restore({"fsdp": 4}, configs["ring"], ckpt_dir, batches[0])
+    return out
+
+
+# ----------------------------------------------------------------------
+# Expert parallelism (test_torch_moe.py) and the pipeline
+# (test_torch_pipeline.py)
+# ----------------------------------------------------------------------
+
+def steps_case(axes, config: TransformerConfig, params: Dict, batches: List[Dict],
+               ckpt_dir=None) -> Dict:
+    """One step on each batch on a mesh on `axes`, from `params`: `steps`
+    (loss, grad norm) and, on rank 0, `state` (every parameter and moment
+    after them, gathered). With `ckpt_dir` the state is saved there."""
+    mesh = build_mesh(MeshSpec(axes), "cpu")
+    state = sharded_state(config, params, mesh)
+    out = {"steps": train(state, config, batches)}
+    full = gathered(state)
+    out["state"] = full if torch.distributed.get_rank() == 0 else None
+    if ckpt_dir is not None:
+        Checkpointer(ckpt_dir).save(state)
+    return out
+
+
+def loss_and_grads(axes, config: TransformerConfig, params: Dict, batch: Dict) -> Dict:
+    """The loss of `batch` and every parameter's gradient (summed over the
+    mesh as the train step sums it, then gathered whole; rank 0), from
+    `params` on a mesh on `axes` (unsharded for None)."""
+    mesh = build_mesh(MeshSpec(axes), "cpu") if axes is not None else None
+    model = sharded_state(config, params, mesh).model
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if mesh is not None:
+        b = shard_batch(b, mesh, config.pipeline_microbatches)
+    loss = loss_fn(model, b)
+    loss.backward()
+    if mesh is not None:
+        reduce_gradients(model)
+    grads = {n: (p.grad if mesh is None else gather_shard(n, p.grad, mesh, model.specs)).numpy()
+             for n, p in model.named_parameters()}
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    return {"loss": loss.item(), "grads": grads if rank0 else None}
+
+
+def moe_layer_case(axes, config: TransformerConfig, h: np.ndarray, lp: Dict) -> Dict:
+    """moe_mlp on this rank's rows of the global hidden states h [B, S, D]
+    (and positions, on `sequence`), with its experts of the layer weights
+    `lp` (router [D, E], w1/w3 [E, D, F], w2 [E, F, D]): its `where` (row and
+    position slices), `out`, `keep` and `aux`."""
+    mesh = build_mesh(MeshSpec(axes), "cpu")
+    b_index, b_count = batch_coordinate(mesh)
+    s_index, s_count = sequence_coordinate(mesh)
+    rows, pos = h.shape[0] // b_count, h.shape[1] // s_count
+    where = (slice(b_index * rows, (b_index + 1) * rows),
+             slice(s_index * pos, (s_index + 1) * pos))
+    x = torch.from_numpy(h[where].copy()).to(config.dtype)
+    n, e = mesh.size(mesh.mesh_dim_names.index("expert")), mesh.get_local_rank("expert")
+    mine = {k: torch.from_numpy(v).chunk(n, 0)[e] for k, v in lp.items() if k != "router"}
+    router = torch.from_numpy(lp["router"])
+    out, aux = moe_mlp(x, router, mine, config, mesh)
+    keep = route(x, router, config, mesh)[3]
+    return {"where": where, "out": out.float().numpy(),
+            "keep": keep.view(x.shape[:2]).numpy(), "aux": aux.item()}
+
+
+def moe_world(cases: Dict, layer_cases: Dict, params: Dict, batches: List[Dict],
+              ckpt_dir: str) -> Dict:
+    """test_torch_moe.py's world of 4 ranks: `steps_case` for each entry of
+    `cases` (name -> (axes, config)), the first saved to `ckpt_dir`; and
+    `moe_layer_case` for each entry of `layer_cases` (name -> its args)."""
+    out = {}
+    for i, (name, (axes, config)) in enumerate(cases.items()):
+        out[name] = steps_case(axes, config, params, batches, ckpt_dir if i == 0 else None)
+    out["layer"] = {name: moe_layer_case(*args) for name, args in layer_cases.items()}
+    return out
+
+
+def pipeline_world(axes, configs: Dict, params: Dict, batches: List[Dict],
+                   moe: tuple, ckpt_dir: str, flat_ckpt: str) -> Dict:
+    """test_torch_pipeline.py's world of 4 ranks on `axes` (a pipeline
+    mesh): `steps_case` for each config of `configs` (the first saved to
+    `ckpt_dir`), the loss of batches[0] under each of them (no grad), the
+    refusals, `restored` (`restore` of `flat_ckpt` onto the mesh under the
+    first config), `loss_and_grads(*moe)` and `loader`: the tokens of this
+    rank's first two batches of 8 with 4 microbatches on the native
+    gather."""
+    mesh = build_mesh(MeshSpec(axes), "cpu")
+    out = {}
+    for i, (name, config) in enumerate(configs.items()):
+        out[name] = steps_case(axes, config, params, batches, ckpt_dir if i == 0 else None)
+        model = sharded_state(config, params, mesh).model
+        b = shard_batch({k: torch.from_numpy(v) for k, v in batches[0].items()}, mesh,
+                        config.pipeline_microbatches)
+        with torch.no_grad():
+            out[name]["loss"] = loss_fn(model, b).item()
+    config = next(iter(configs.values()))
+    refusals = {
+        "batch": lambda: shard_batch({"tokens": torch.zeros(6, 4)}, mesh, 4),
+        "microbatch": lambda: shard_batch({"tokens": torch.zeros(4, 4)}, mesh, 4),
+        "n_layers": lambda: shard_model(
+            Transformer(dataclasses.replace(config, n_layers=3), "cpu"), mesh),
+    }
+    out["refusals"] = {}
+    for name, make in refusals.items():
+        try:
+            make()
+        except ValueError as e:
+            out["refusals"][name] = str(e)
+    out["restored"] = restore(axes, config, flat_ckpt, batches[0])
+    out["moe"] = loss_and_grads(*moe)
+    rows = np.random.RandomState(3).randint(0, 256, size=(24, 33)).astype(np.int32)
+    loader = DataLoader(TokenDataset(rows), 8, device="cpu", mesh=mesh, microbatches=4,
+                        use_native=True)
+    out["loader"] = [b["tokens"].numpy() for _, b in zip(range(2), loader)]
     return out

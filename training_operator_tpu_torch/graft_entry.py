@@ -11,6 +11,7 @@ sharded math, not a card.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, List
 
@@ -74,7 +75,7 @@ def _run_gate_pass(label: str, config: TransformerConfig, mesh, seed: int,
     del full
     state = init_train_state(config, optimizer, torch.Generator().manual_seed(seed), cpu, mesh)
     step = make_train_step(config, optimizer, device=cpu, mesh=mesh)
-    state, metrics = step(state, shard_batch(batch, mesh))
+    state, metrics = step(state, shard_batch(batch, mesh, config.pipeline_microbatches))
     loss = metrics["loss"].item()
     if not (loss == loss and loss > 0 and ref_loss == ref_loss and ref_loss > 0):
         raise AssertionError(f"{label}: bad loss {loss} or reference loss {ref_loss}")
@@ -105,6 +106,12 @@ def _dryrun_rank(n: int) -> List[Dict]:
     passes = [_run_gate_pass(f"dryrun_multichip({n})", _tiny_config(seq=128),
                              build_mesh(MeshSpec(_pass1_axes(n)), "cpu"), seed=0)]
     if n % 8 == 0:
+        # Pass 2: a 2-stage GPipe pipeline x the expert-parallel switch MoE x
+        # tensor parallelism, the JAX pass's config (seed 1).
+        config2 = dataclasses.replace(_tiny_config(seq=128), n_experts=2,
+                                      pipeline_microbatches=2)
+        mesh2 = build_mesh(MeshSpec({"pipeline": 2, "expert": 2, "tensor": 2}), "cpu")
+        passes.append(_run_gate_pass(f"dryrun_multichip({n}) pp/ep", config2, mesh2, seed=1))
         # Pass 3, multi-slice data parallelism from the operator's
         # multi-slice env: `data` spans the slices, fsdp/tensor stay inside.
         ms_env = {"TPU_NUM_SLICES": "2", "TPU_MESH_AXES": "data=2,fsdp=2,tensor=2",
@@ -128,17 +135,16 @@ def _dryrun_rank(n: int) -> List[Dict]:
 
 def dryrun_multichip(n_devices: int) -> List[Dict]:
     """The full sharded train step, once, on n-process meshes of gloo CPU
-    processes: pass 1 (tensor/sequence/fsdp/data, the ring over gloo) and, when n divides by 8, pass 3
+    processes: pass 1 (tensor/sequence/fsdp/data, the ring over gloo) and,
+    when n divides by 8, pass 2 (pipeline=2 x expert=2 x tensor=2: the
+    GPipe schedule over gloo with the expert-parallel switch MoE) and pass 3
     (multi-slice dp from TPU_MESH_AXES=data=2,fsdp=2,tensor=2). Each pass's
-    loss must match the single-process loss (rtol 5e-3); any failure
-    raises. Pass 2 (pipeline x expert x tensor) waits for ROADMAP items
-    12-13 and is reported as not run. Prints one line per pass and returns
-    rank 0's results."""
+    loss must match the single-process loss (rtol 5e-3; for pass 2 the
+    unpipelined loss, whose MoE capacity counts the whole batch where the
+    pipeline's counts each microbatch); any failure raises. Prints one line
+    per pass and returns rank 0's results."""
     passes = distributed.spawn(_dryrun_rank, n_devices, (n_devices,))[0]
     for p in passes:
         print(f"{p['label']}: mesh={p['mesh']} loss={p['loss']:.4f} "
               f"(parity ok, ref {p['ref_loss']:.4f})")
-    if n_devices % 8 == 0:
-        print(f"dryrun_multichip({n_devices}) pp/ep: not run, waits for ROADMAP items 12-13 "
-              "(pipeline and expert parallelism)")
     return passes

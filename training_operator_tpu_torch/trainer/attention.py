@@ -34,6 +34,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from training_operator_tpu_torch.trainer import flash
+from training_operator_tpu_torch.trainer.collectives import all_to_all
 from training_operator_tpu_torch.trainer.flash import (
     FLASH_FWD_OP,
     OPS,
@@ -301,30 +302,13 @@ def ring_attention(q, k, v, mesh: DeviceMesh, causal: bool = True) -> torch.Tens
 # Ulysses: all-to-all over `sequence`, full-sequence attention on a head slice
 # ----------------------------------------------------------------------
 
-def _all_to_all(x: torch.Tensor, group, n: int, split: int, join: int) -> torch.Tensor:
-    """Chunk j of `x` along `split` to rank j of `group`; the chunks
-    received, in rank order, joined along `join`."""
-    parts = torch.stack(x.chunk(n, split)).contiguous()
-    out = torch.empty_like(parts)
-    dist.all_to_all_single(out, parts, group=group)
-    return torch.cat(out.unbind(0), join)
-
-
-class _Reshard(torch.autograd.Function):
-    """[B, S/n, H, D] -> [B, S, H/n, D] (heads_out=True) or back; the
-    backward is the inverse all-to-all."""
-
-    @staticmethod
-    def forward(ctx, x, group, n, heads_out):
-        ctx.group, ctx.n, ctx.heads_out = group, n, heads_out
-        return _all_to_all(x, group, n, 2, 1) if heads_out else _all_to_all(x, group, n, 1, 2)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        if ctx.heads_out:
-            return _all_to_all(g, ctx.group, ctx.n, 1, 2), None, None, None
-        return _all_to_all(g, ctx.group, ctx.n, 2, 1), None, None, None
+def _reshard(x: torch.Tensor, group, n: int, heads_out: bool) -> torch.Tensor:
+    """[B, S/n, H, D] -> [B, S, H/n, D] (heads_out=True) or back: chunk j
+    of the split dim to rank j of `group`, the chunks received joined in
+    rank order. Its gradient is the inverse all-to-all."""
+    split, join = (2, 1) if heads_out else (1, 2)
+    parts = all_to_all(torch.stack(x.chunk(n, split)), group)
+    return torch.cat(parts.unbind(0), join)
 
 
 def ulysses_attention(q, k, v, mesh: DeviceMesh, causal: bool = True) -> torch.Tensor:
@@ -339,8 +323,8 @@ def ulysses_attention(q, k, v, mesh: DeviceMesh, causal: bool = True) -> torch.T
         raise ValueError(f"ulysses needs heads ({q.shape[2] * tp}) divisible by "
                          f"sequence x tensor axis sizes ({sp} x {tp})")
     group = mesh.get_group("sequence")
-    q, k, v = (_Reshard.apply(x, group, sp, True) for x in (q, k, v))
-    return _Reshard.apply(_single_device(q, k, v, causal, "auto"), group, sp, False)
+    q, k, v = (_reshard(x, group, sp, True) for x in (q, k, v))
+    return _reshard(_single_device(q, k, v, causal, "auto"), group, sp, False)
 
 
 # ----------------------------------------------------------------------

@@ -12,6 +12,7 @@ raises.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -58,20 +59,84 @@ def flagship_config() -> Tuple[TransformerConfig, int, int]:
     )
 
 
+def moe_config() -> Tuple[TransformerConfig, int, int]:
+    """(config, batch, seq) of chip_smoke.py phase 9: the flagship at full
+    width with a switch MoE of 8 experts at capacity factor 1.25 in every
+    layer, Switch-Base-8's expert count and training capacity (Fedus et
+    al., 2021): 2.93B parameters, one expert's MLP (the flagship's d_ff)
+    active per token."""
+    config, batch, seq = flagship_config()
+    return dataclasses.replace(config, n_experts=8, expert_capacity=1.25), batch, seq
+
+
+def pipeline_config() -> Tuple[TransformerConfig, int, int, int]:
+    """(config, batch, seq, stages) of chip_smoke.py phase 10: the dense
+    flagship as 2 GPipe stages with 4 microbatches of 2 x 2048, run
+    through the loopback transport on one card."""
+    config, batch, seq = flagship_config()
+    return dataclasses.replace(config, pipeline_microbatches=4), batch, seq, 2
+
+
 def _count_params(model: torch.nn.Module) -> Tuple[int, int]:
-    """(total, matmul-relevant) parameter counts; the embedding table is a
-    gather, not a product."""
+    """(total, matmul-relevant active) parameter counts: the embedding table
+    is a gather, not a product, and of a MoE layer's expert stacks one
+    expert's share per token (FLOPS_RULE)."""
     total = sum(p.numel() for p in model.parameters())
-    return total, total - model.embed.numel()
+    products = total - model.embed.numel()
+    c = model.config
+    if c.n_experts > 0:
+        experts = sum(getattr(model.layers, n).numel() for n in ("w1", "w3", "w2"))
+        products -= experts - experts // c.n_experts
+    return total, products
+
+
+FLOPS_RULE = ("6 x active params per token (the embedding gather excluded; for MoE one "
+              "expert's MLP per token, capacity padding and dropped tokens not counted) "
+              "+ 6 x n_layers x seq x d_model causal attention")
 
 
 def flops_per_step(config: TransformerConfig, n_matmul_params: int, batch: int,
                    seq: int) -> float:
-    """Model FLOPs of one fwd+bwd step: 6*N per token for weight products plus
+    """Model FLOPs of one fwd+bwd step (FLOPS_RULE): 6*N per token for
+    weight products, N the active matmul parameters (`_count_params`), plus
     causal self-attention 6*L*S*d_model per token (no remat recompute)."""
     tokens = batch * seq
     attn = 6 * config.n_layers * seq * config.d_model
     return float(tokens) * (6.0 * n_matmul_params + attn)
+
+
+def active_mfu(config: TransformerConfig, batch: int, seq: int, step_ms: float) -> float:
+    """The model FLOP utilization of a step of `step_ms` on an H100 (989
+    TFLOP/s bf16), the parameters counted by `_count_params` on a meta
+    model."""
+    from training_operator_tpu_torch.trainer.model import Transformer
+
+    n_active = _count_params(Transformer(config, "meta"))[1]
+    return flops_per_step(config, n_active, batch, seq) / (step_ms / 1e3) / PEAK_BF16_FLOPS["H100"]
+
+
+@torch.no_grad()
+def moe_routing(model, tokens: torch.Tensor,
+                config: Optional[TransformerConfig] = None) -> Dict[str, list]:
+    """Per layer of an unsharded MoE model, from one forward on `tokens`:
+    the share of the tokens routed to each expert (`expert_shares`) and the
+    share dropped at capacity (`dropped_share`)."""
+    from training_operator_tpu_torch.trainer import model as m
+    from training_operator_tpu_torch.trainer.moe import route
+
+    c = config or model.config
+    b, s = tokens.shape
+    x = m.embed_tokens(model.embed, tokens, c)
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    shares, dropped = [], []
+    for lp in model.layers.unbind():
+        x = x + m._attn_block(x, lp, c, positions, c.attn_impl)
+        choice, _, _, keep, _, _ = route(m._rms_norm(x, lp["ln2"]), lp["router"], c)
+        counts = torch.bincount(choice, minlength=c.n_experts)
+        shares.append((counts.float() / choice.numel()).tolist())
+        dropped.append(1.0 - keep.float().mean().item())
+        x = m._add_mlp(x, lp, c, None)[0]
+    return {"expert_shares": shares, "dropped_share": dropped}
 
 
 def cuda_time_ms(fn: Callable[[], Any], iters: int = 10, warmup: int = 2) -> float:
@@ -146,12 +211,15 @@ def _kernel_family(name: str) -> str:
 
 
 def profile_train_step(config: TransformerConfig, batch: int, seq: int,
-                       steps: int = 2, top: int = 30, device=None, mesh=None) -> Dict[str, Any]:
+                       steps: int = 2, top: int = 30, device=None, mesh=None,
+                       stages: int = 0) -> Dict[str, Any]:
     """Where one train step's device time goes: torch.profiler over `steps`
     steps after one warm-up step; device time per kernel family and the top
     kernels by name, the share of the window the device was idle, and the
     forward / backward / optimizer phases by subtraction (CUDA events).
-    With `mesh`, the step sharded on it (this rank's rows of the batch)."""
+    With `mesh`, the step sharded on it (this rank's rows of the batch);
+    with `stages`, the model as that many pipeline stages through the
+    loopback transport (pipeline.loopback)."""
     from torch.profiler import ProfilerActivity, profile
 
     from training_operator_tpu_torch.trainer.mesh import shard_batch
@@ -168,10 +236,14 @@ def profile_train_step(config: TransformerConfig, batch: int, seq: int,
         raise RuntimeError("profile_train_step measures the card; no CUDA device given")
     optimizer = make_optimizer(total_steps=steps + 2)
     state = init_train_state(config, optimizer, device=device, mesh=mesh)
+    if stages:
+        from training_operator_tpu_torch.trainer.pipeline import loopback
+
+        loopback(state.model, stages)
     step_fn = make_train_step(config, optimizer, device=device, mesh=mesh)
     data = make_example_batch(config, batch, seq, device=device)
     if mesh is not None:
-        data = shard_batch(data, mesh)
+        data = shard_batch(data, mesh, config.pipeline_microbatches)
     state, _ = step_fn(state, data)
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -620,7 +692,10 @@ def main(argv=None) -> None:
     `run_trainer_bench` (step, kernels, data path, end-to-end loop); with
     `--mesh`, the profile of the unsharded step and of the step sharded on
     a world of one NCCL rank (fsdp=1,tensor=1), in that order; with
-    `--ring`, `profile_ring` at chip_smoke.py phase 8's three cases."""
+    `--ring`, `profile_ring` at chip_smoke.py phase 8's three cases; with
+    `--moe` and `--pipeline`, `profile_train_step` on chip_smoke.py phase 9's
+    and phase 10's configurations (`moe_config`, `pipeline_config`), beside
+    the step's MFU on active parameters (FLOPS_RULE)."""
     import argparse
     import json
     import subprocess
@@ -636,13 +711,26 @@ def main(argv=None) -> None:
                         help="profile the step unsharded and sharded on a world of one")
     parser.add_argument("--ring", action="store_true",
                         help="profile the loopback ring beside the unsplit flash kernels")
+    parser.add_argument("--moe", action="store_true",
+                        help="profile the step of the 8-expert switch MoE flagship")
+    parser.add_argument("--pipeline", action="store_true",
+                        help="profile the flagship step as 2 loopback pipeline stages")
     args = parser.parse_args(argv)
     config, batch, seq = flagship_config()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    if args.loss_gap:
+    if args.moe or args.pipeline:
+        stages = 0
+        if args.moe:
+            config, batch, seq = moe_config()
+        else:
+            config, batch, seq, stages = pipeline_config()
+        prof = profile_train_step(config, batch, seq, stages=stages)
+        out = {"card": card, "moe" if args.moe else "pipeline": prof,
+               "mfu": active_mfu(config, batch, seq, prof["step_ms"]), "flops_rule": FLOPS_RULE}
+    elif args.loss_gap:
         out = {"card": card, "loss_gaps": loss_gaps()}
     elif args.ring:
         out = {"card": card, "ring": [profile_ring(shape, ns) for shape, ns in RING_CASES]}

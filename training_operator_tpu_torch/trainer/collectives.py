@@ -15,6 +15,12 @@ collective itself, where the JAX package leaves that to XLA's partitioner:
   row-parallel product's output over `tensor` or the loss numerator over the
   batch axes. All-reduce forward, identity backward (what follows is the
   same on every peer): Megatron's g.
+- `all_to_all`: rows of dim 0 to the ranks of a group, in split sizes that
+  may differ per rank (MoE dispatch over `expert`; Ulysses over `sequence`
+  with equal splits). Backward is the inverse all-to-all.
+- `token_prefix`: per row and column, the count of tokens before a rank's
+  own in the global token order, over the ranks that split the tokens (the
+  place MoE's queue resumes at on this rank).
 
 Every rank runs the same collectives in the same order, recomputes under
 remat included, since every rank runs the same program.
@@ -22,13 +28,18 @@ remat included, since every rank runs the same program.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from training_operator_tpu_torch.trainer.mesh import BATCH_AXES, axis_size
+from training_operator_tpu_torch.trainer.mesh import (
+    BATCH_AXES,
+    axis_size,
+    batch_coordinate,
+    sequence_coordinate,
+)
 
 # The single-tensor collectives' names since torch 2.13; older releases
 # have only the `_into_tensor` / `_tensor` names.
@@ -129,3 +140,53 @@ class _ReduceSum(torch.autograd.Function):
 def reduce_sum(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Tensor:
     """Megatron's g over `axes`; see the module docstring."""
     return _ReduceSum.apply(x, mesh, tuple(axes))
+
+
+def _exchange(x: torch.Tensor, group, out_splits, in_splits) -> torch.Tensor:
+    rows = x.shape[0] if out_splits is None else sum(out_splits)
+    out = x.new_empty((rows,) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), out_splits, in_splits, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, out_splits, in_splits):
+        ctx.group, ctx.splits = group, (out_splits, in_splits)
+        return _exchange(x, group, out_splits, in_splits)
+
+    @staticmethod
+    def backward(ctx, g):
+        out_splits, in_splits = ctx.splits
+        return _exchange(g, ctx.group, in_splits, out_splits), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, out_splits: Optional[List[int]] = None,
+               in_splits: Optional[List[int]] = None) -> torch.Tensor:
+    """Rows of `x` (dim 0) to the ranks of `group` in rank order,
+    `in_splits[j]` rows to rank j, and the rows received, `out_splits[j]`
+    from rank j, in rank order; equal splits when None. Differentiable: the
+    gradient goes back the way the rows came."""
+    return _AllToAll.apply(x, group, out_splits, in_splits)
+
+
+def token_prefix(counts: torch.Tensor, mesh: Optional[DeviceMesh]) -> torch.Tensor:
+    """counts [rows, C] (per local row, the tokens of this rank's slice of
+    it that fall in column C) -> [rows, C], the tokens of each column that
+    come before each local row's slice in the global token order: row-major
+    over [B, S], the rows split over BATCH_AXES (in batch_coordinate order)
+    and the positions over `sequence`. An exclusive prefix sum over the
+    gathered counts of every rank that splits the tokens; without a mesh,
+    over the local rows."""
+    if mesh is None:
+        return counts.cumsum(0) - counts
+    x = counts[None, None]  # [batch ranks, sequence ranks, rows, C]
+    if axis_size(mesh, "sequence") > 1:
+        x = all_gather(x, mesh, "sequence", 1)
+    for axis in reversed(BATCH_AXES):  # minor first: batch_coordinate's order
+        if axis_size(mesh, axis) > 1:
+            x = all_gather(x, mesh, axis, 0)
+    order = x.transpose(1, 2)  # global order: batch rank, row, sequence slice
+    flat = order.reshape(-1, counts.shape[-1])
+    before = (flat.cumsum(0) - flat).reshape(order.shape)
+    return before[batch_coordinate(mesh)[0], :, sequence_coordinate(mesh)[0]]

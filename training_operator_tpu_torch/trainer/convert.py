@@ -1,9 +1,11 @@
 """Weight bridge: the JAX package's parameter pytree to the port's parameters.
 
 The JAX tree is {"embed", "layers": {"ln1", "wq", ...}, "ln_f", "lm_head"}
-with layer weights stacked on [L] and matrices stored [in, out]; the port's
-`Transformer` keeps exactly that layout, so the bridge only flattens the
-names ("layers.wq") and copies. The trees come in as numpy arrays (convert
+with layer weights stacked on [L] and matrices stored [in, out] (a MoE
+model's layers add "router" [L, D, E] and lead w1/w3/w2 with E after L);
+the port's `Transformer` keeps exactly that layout, so the bridge only
+flattens the names ("layers.wq") and copies, after checking the names and
+shapes against the config's (model.param_shapes). The trees come in as numpy arrays (convert
 a JAX tree with `jax.tree.map(np.asarray, tree)` on the JAX side); nothing
 here imports JAX.
 """
@@ -15,7 +17,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from training_operator_tpu_torch.trainer.model import Transformer
+from training_operator_tpu_torch.trainer.model import Transformer, param_shapes
 
 
 def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -40,17 +42,21 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 @torch.no_grad()
 def load_jax_params(model: Transformer, tree: Dict[str, Any]) -> Transformer:
-    """Copies a JAX parameter tree into `model` (on whatever device it lives)."""
+    """Copies a JAX parameter tree into an unsharded `model` (on whatever
+    device it lives); the names and shapes must be those of the model's
+    config, MoE router and expert stacks included."""
     state = params_from_jax(tree)
-    own = dict(model.named_parameters())
-    if set(state) != set(own):
+    want = param_shapes(model.config)
+    if set(state) != set(want):
         raise ValueError(
-            f"parameter names differ: missing {sorted(set(own) - set(state))}, "
-            f"unexpected {sorted(set(state) - set(own))}"
+            f"parameter names differ: missing {sorted(set(want) - set(state))}, "
+            f"unexpected {sorted(set(state) - set(want))}"
         )
+    own = dict(model.named_parameters())
     for name, value in state.items():
-        if tuple(value.shape) != tuple(own[name].shape):
-            raise ValueError(f"{name}: JAX {tuple(value.shape)} vs port {tuple(own[name].shape)}")
+        if tuple(value.shape) != want[name] or tuple(own[name].shape) != want[name]:
+            raise ValueError(f"{name}: JAX {tuple(value.shape)} vs port {want[name]} "
+                             f"(the model holds {tuple(own[name].shape)})")
         own[name].copy_(value)
     return model
 

@@ -10,7 +10,9 @@ each rank gathers and emits only its rows of it, the slice at its batch
 coordinate over (data, fsdp, expert) (mesh.batch_coordinate), and of those
 rows the slice of positions at its `sequence` coordinate: ranks that differ
 only in `tensor` get the same block, and the union over the coordinates is
-the batch the unsharded loader yields. The dataset is then
+the batch the unsharded loader yields. On a pipeline mesh a rank's rows
+are its block of every microbatch (mesh.batch_rows; `microbatches` is the
+config's `pipeline_microbatches`). The dataset is then
 the same on every rank; `process_shard` splits it by PROCESS_ID only for
 separate single-process trainers, since a tensor peer is a process too.
 """
@@ -30,6 +32,7 @@ from training_operator_tpu_torch import native
 from training_operator_tpu_torch.trainer.mesh import (
     BATCH_AXES,
     batch_coordinate,
+    batch_rows,
     check_sequence,
     sequence_coordinate,
 )
@@ -97,26 +100,26 @@ class DataLoader:
 
     def __init__(self, dataset: TokenDataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, device=None,
-                 use_native: Optional[bool] = None, mesh: Optional[DeviceMesh] = None):
+                 use_native: Optional[bool] = None, mesh: Optional[DeviceMesh] = None,
+                 microbatches: int = 0):
         if batch_size > len(dataset):
             raise ValueError(
                 f"batch_size {batch_size} exceeds dataset shard of {len(dataset)} rows"
             )
-        # This rank's rows [lo, lo + local) of every global batch, and its
-        # positions [pos, pos + seq) of each row (seq None: all of them).
-        self.local, self.lo = batch_size, 0
+        # This rank's rows of every global batch (None: all of them), and
+        # its positions [pos, pos + seq) of each row (seq None: all of them).
+        self.rows: Optional[np.ndarray] = None
         self.pos, self.seq = 0, None
         if mesh is not None:
             if not drop_last:
                 # A partial tail batch cannot be split over the batch axes;
                 # fail at construction, not mid-epoch.
                 raise ValueError("drop_last=False is incompatible with a sharded mesh")
-            index, count = batch_coordinate(mesh)
+            _, count = batch_coordinate(mesh)
             if batch_size % count:
                 raise ValueError(f"batch_size {batch_size} does not split over the batch "
                                  f"axes {BATCH_AXES} ({count} shards)")
-            self.local = batch_size // count
-            self.lo = index * self.local
+            self.rows = batch_rows(mesh, batch_size, microbatches)
             s_index, s_count = sequence_coordinate(mesh)
             if s_count > 1:
                 row = dataset.rows.shape[1] - 1
@@ -147,19 +150,24 @@ class DataLoader:
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
         end = (len(rows) // self.batch_size) * self.batch_size if self.drop_last else len(rows)
-        starts = list(range(self.lo, end, self.batch_size))
+        starts = list(range(0, end, self.batch_size))
         if self.use_native and starts:
             with native.Prefetcher(rows) as pf:
-                pf.submit(order[starts[0] : starts[0] + self.local])
+                pf.submit(self._take(order, starts[0]))
                 for i, start in enumerate(starts):
                     chunk = pf.wait()
                     if i + 1 < len(starts):
-                        nxt = starts[i + 1]
-                        pf.submit(order[nxt : nxt + self.local])
+                        pf.submit(self._take(order, starts[i + 1]))
                     yield self._emit(chunk)
             return
         for start in starts:
-            yield self._emit(rows[order[start : start + self.local]])
+            yield self._emit(rows[self._take(order, start)])
+
+    def _take(self, order: np.ndarray, start: int) -> np.ndarray:
+        """The dataset rows of this rank's part of the batch at `start`."""
+        if self.rows is None:
+            return order[start:start + self.batch_size]
+        return order[start + self.rows]
 
     def _emit(self, chunk: np.ndarray) -> Dict[str, torch.Tensor]:
         end = chunk.shape[1] - 1 if self.seq is None else self.pos + self.seq

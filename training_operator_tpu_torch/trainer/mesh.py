@@ -7,8 +7,14 @@ at the coordinate where the JAX `build_mesh` puts device r. One process owns
 one device, so the mesh's size is the world size.
 
 Unlike the JAX `mesh_from_env`, nothing falls back: a mesh the world cannot
-fill raises, and so does an axis whose parallelism is not ported yet
-(`pipeline`, `expert` larger than 1).
+fill raises, and so does `pipeline` with `sequence` (the JAX pipeline refuses
+that pair when it runs, pipeline.py:56-60; the port when the mesh is built).
+
+On a pipeline mesh a batch rank's rows are its share of every microbatch
+(`batch_rows`): microbatch j is rows j*mb .. (j+1)*mb - 1 of the global
+batch, as the JAX schedule cuts it (pipeline.py:83), and batch rank r holds
+the r-th block of each, so the ranks' tokens in rank order are each
+microbatch's tokens in the global order that MoE capacity counts in.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -31,8 +38,8 @@ BATCH_AXES = ("data", "fsdp", "expert")
 # "sequence")). Sums over the tokens (the loss, the gradients) run over them.
 TOKEN_AXES = BATCH_AXES + ("sequence",)
 
-# Axes whose parallelism is not ported yet, with the ROADMAP item that ports it.
-NOT_PORTED = {"pipeline": 12, "expert": 13}
+PIPELINE_WITH_SEQUENCE = ("pipeline and sequence (ring attention) axes are mutually "
+                          "exclusive; shard long sequences within a stage instead")
 
 
 @dataclass
@@ -82,14 +89,10 @@ class MeshSpec:
 
 def build_mesh(spec: MeshSpec, device_type: str) -> DeviceMesh:
     """The six-axis DeviceMesh of `spec` over the default process group,
-    whose world size must equal `spec.size()`. Raises NotImplementedError
-    for an axis that is not ported yet."""
-    for axis, item in NOT_PORTED.items():
-        if spec.axes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={spec.axes[axis]}: {axis} parallelism is not ported "
-                f"yet (ROADMAP items 12-13; this axis is item {item})"
-            )
+    whose world size must equal `spec.size()`. Raises ValueError for
+    `pipeline` with `sequence`."""
+    if spec.axes.get("pipeline", 1) > 1 and spec.axes.get("sequence", 1) > 1:
+        raise ValueError(PIPELINE_WITH_SEQUENCE)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if spec.size() != world:
         raise ValueError(f"mesh {spec.axes} needs {spec.size()} processes, the world has {world}")
@@ -140,19 +143,41 @@ def check_sequence(seq: int, mesh: DeviceMesh) -> None:
                          f"sequence={count}")
 
 
-def shard_batch(batch: Dict[str, torch.Tensor], mesh: DeviceMesh) -> Dict[str, torch.Tensor]:
-    """This rank's block of a global batch: every [B, S] entry split on dim
-    0 by `batch_coordinate` and on dim 1 by `sequence_coordinate`. Raises
-    when the batch does not divide by the batch axes or its sequence by
-    `sequence`."""
+def batch_rows(mesh: DeviceMesh, rows: int, microbatches: int = 0) -> np.ndarray:
+    """The rows of a global batch of `rows` that this rank holds, in order:
+    the block at its batch coordinate, or on a pipeline mesh that block of
+    every one of the `microbatches` (0: one per stage, JAX
+    `pipeline_microbatches or n_stages`; the module docstring). Raises when
+    the batch does not divide by the microbatches or a block by the batch
+    axes."""
     index, count = batch_coordinate(mesh)
+    stages = axis_size(mesh, "pipeline")
+    m = 1 if stages == 1 else (microbatches or stages)
+    if rows % m:
+        raise ValueError(f"batch {rows} not divisible by microbatches {m}")
+    mb = rows // m
+    if mb % count:
+        what = f"microbatch of {mb} rows" if m > 1 else f"batch of {rows} rows"
+        raise ValueError(f"{what} does not split over the batch axes {BATCH_AXES} "
+                         f"({count} shards)")
+    per = mb // count
+    return (np.arange(m)[:, None] * mb + index * per + np.arange(per)).reshape(-1)
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh: DeviceMesh,
+                microbatches: int = 0) -> Dict[str, torch.Tensor]:
+    """This rank's block of a global batch: every [B, S] entry's rows by
+    `batch_rows` (`microbatches` is the config's `pipeline_microbatches`,
+    read on a pipeline mesh only) and its positions by
+    `sequence_coordinate`. Raises when the batch does not split."""
     s_index, s_count = sequence_coordinate(mesh)
     out = {}
     for name, t in batch.items():
-        if t.shape[0] % count:
-            raise ValueError(f"batch of {t.shape[0]} rows does not split over the batch "
-                             f"axes {BATCH_AXES} ({count} shards)")
-        t = t.chunk(count, 0)[index]
+        rows = batch_rows(mesh, t.shape[0], microbatches)
+        if rows[-1] - rows[0] + 1 == rows.size:  # one block: a view
+            t = t[rows[0]:rows[-1] + 1]
+        else:
+            t = t[torch.from_numpy(rows).to(t.device)]
         if s_count > 1:
             check_sequence(t.shape[1], mesh)
             t = t.chunk(s_count, 1)[s_index]

@@ -12,10 +12,13 @@ names and layout so the weight bridge (convert.py) is a renaming:
   (bf16 by default), and the lm head runs in fp32.
 
 Architecture: pre-RMSNorm, split-half rotary embeddings, GQA-capable
-attention, SwiGLU MLP. `remat=True` applies `remat_policy` to each layer
-(`layer_body`, the JAX `make_layer_body`); `remat_head=True` checkpoints the
-head and loss. Mixture-of-experts and pipeline stages are not ported yet and
-raise.
+attention, SwiGLU MLP, or with `n_experts > 0` the switch (top-1) MoE MLP of
+moe.py in every layer, whose load-balancing aux loss, averaged over the
+layers, adds to the loss at `router_aux_coef`. `remat=True` applies
+`remat_policy` to each layer (`layer_body`, the JAX `make_layer_body`);
+`remat_head=True` checkpoints the head and loss. On a mesh with a
+`pipeline` axis, or a model given to `pipeline.loopback`, the loss runs the
+GPipe schedule of pipeline.py over `model.stages`.
 
 The sharded half (JAX `param_specs` and the mesh paths of `backbone` and
 `loss_fn`): `init_params(..., mesh)` builds on each rank the shard of every
@@ -27,7 +30,11 @@ Megatron column/row products on `tensor` and the complementary dim on
 recompute), attention over the `sequence` axis (attention.py: ring or
 Ulysses) with RoPE at each slice's global positions, a vocab-parallel head
 and loss, and a loss that is the global masked mean over the batch axes and
-`sequence`. The parameters stay plain tensors holding the
+`sequence`. MoE expert stacks shard their expert dim over `expert` and
+their tokens travel there by all-to-all (moe.py). On a pipeline mesh each
+rank holds only its stage's layers: the [L] dim of every layer weight
+sharded over `pipeline` (`layout_specs`, JAX `_stage_specs`). The
+parameters stay plain tensors holding the
 local shard: DTensor op dispatch on a six-axis mesh enumerates placement
 strategies per op (on torch 2.13 the backward of one tiny DTensor parameter
 took seconds), so the placements (`param_placements`) describe the layout
@@ -65,6 +72,7 @@ from training_operator_tpu_torch.trainer.mesh import (
     axis_size,
     sequence_coordinate,
 )
+from training_operator_tpu_torch.trainer.moe import moe_mlp
 
 
 def resolve_device(device=None) -> torch.device:
@@ -90,10 +98,13 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
-    # Mixture-of-experts; only 0 (dense) is ported.
+    # Mixture-of-experts: n_experts > 0 replaces every layer's SwiGLU by a
+    # switch (top-1) MoE with n_experts experts (moe.py).
     n_experts: int = 0
-    expert_capacity: float = 1.25
-    router_aux_coef: float = 0.01
+    expert_capacity: float = 1.25  # slots per expert = capacity * tokens / E
+    router_aux_coef: float = 0.01  # weight of the load-balancing loss
+    # GPipe microbatches on a mesh with a `pipeline` axis (0: one per
+    # stage); read there only.
     pipeline_microbatches: int = 0
     # "auto" (flash kernels on the card where they take the dtype and
     # head_dim), "flash", "xla" (the plain path); on a sequence-sharded mesh
@@ -121,18 +132,23 @@ class TransformerConfig:
                 f"unknown remat_policy {self.remat_policy!r}; "
                 f"one of {self.REMAT_POLICIES}"
             )
-        if self.pipeline_microbatches:
-            raise NotImplementedError("pipeline stages (pipeline_microbatches > 0) are "
-                                      "not ported yet")
-        if self.n_experts != 0:
-            raise NotImplementedError("mixture-of-experts (n_experts > 0) is not ported yet")
+        if self.n_experts < 0 or self.pipeline_microbatches < 0:
+            raise ValueError(f"n_experts={self.n_experts} and pipeline_microbatches="
+                             f"{self.pipeline_microbatches} must not be negative")
 
 
 LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w3", "w2")
+MOE_LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "router", "w1", "w3", "w2")
+
+
+def layer_params(config: TransformerConfig) -> Tuple[str, ...]:
+    return MOE_LAYER_PARAMS if config.n_experts > 0 else LAYER_PARAMS
 
 
 def param_shapes(config: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
-    """The full shape of every parameter, by the port's names."""
+    """The full shape of every parameter, by the port's names (JAX
+    `init_params`): a MoE layer's router is [D, E] and its expert stacks
+    lead with E."""
     c = config
     dm, dff, L, V = c.d_model, c.d_ff, c.n_layers, c.vocab_size
     q_dim, kv_dim = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
@@ -141,7 +157,11 @@ def param_shapes(config: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
         "wv": (L, dm, kv_dim), "wo": (L, q_dim, dm), "ln2": (L, dm),
         "w1": (L, dm, dff), "w3": (L, dm, dff), "w2": (L, dff, dm),
     }
-    return {"embed": (V, dm), **{"layers." + n: layers[n] for n in LAYER_PARAMS},
+    if c.n_experts > 0:
+        E = c.n_experts
+        layers.update(router=(L, dm, E), w1=(L, E, dm, dff), w3=(L, E, dm, dff),
+                      w2=(L, E, dff, dm))
+    return {"embed": (V, dm), **{"layers." + n: layers[n] for n in layer_params(c)},
             "ln_f": (dm,), "lm_head": (dm, V)}
 
 
@@ -151,7 +171,7 @@ class DecoderLayers(nn.Module):
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
         shapes = param_shapes(config)
-        for name in LAYER_PARAMS:
+        for name in layer_params(config):
             self.register_parameter(
                 name, nn.Parameter(torch.empty(shapes["layers." + name], device=device))
             )
@@ -160,9 +180,13 @@ class DecoderLayers(nn.Module):
         """Per-layer views of the stacked weights. One `unbind` per stack:
         its backward stacks the layers' gradients once, where indexing each
         layer (`w[i]`) would add L zero-filled full-stack gradients."""
-        stacks = {name: getattr(self, name).unbind(0) for name in LAYER_PARAMS}
-        return [{name: stacks[name][i] for name in LAYER_PARAMS}
-                for i in range(len(stacks["ln1"]))]
+        return unbind_layers(dict(self.named_parameters()))
+
+
+def unbind_layers(stacks: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """{name: [L, ...] stack} -> L dicts of per-layer views."""
+    parts = {name: t.unbind(0) for name, t in stacks.items()}
+    return [dict(zip(parts, layer)) for layer in zip(*parts.values())]
 
 
 class Transformer(nn.Module):
@@ -178,8 +202,13 @@ class Transformer(nn.Module):
         self.layers = DecoderLayers(c, device)
         self.ln_f = nn.Parameter(torch.empty(c.d_model, device=device))
         self.lm_head = nn.Parameter(torch.empty(c.d_model, c.vocab_size, device=device))
-        # Set when sharded: the parameters then hold this rank's shards.
+        # Set when sharded: the parameters then hold this rank's shards, laid
+        # out by `specs` (layout_specs).
         self.mesh: Optional[DeviceMesh] = None
+        self.specs = param_specs(config)
+        # The GPipe stages the loss runs through (pipeline.py): set on a
+        # pipeline mesh, or by pipeline.loopback.
+        self.stages = None
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, tokens)
@@ -209,7 +238,7 @@ def init_params(
     resid_std = std / (2 * c.n_layers) ** 0.5
     scales = {
         "embed": 1.0, "layers.wq": std, "layers.wk": std, "layers.wv": std,
-        "layers.wo": resid_std, "layers.w1": std, "layers.w3": std,
+        "layers.wo": resid_std, "layers.router": std, "layers.w1": std, "layers.w3": std,
         "layers.w2": resid_std, "lm_head": std,
     }
 
@@ -224,9 +253,10 @@ def init_params(
             fill(name, p)
         return model
 
-    def shard(name: str, shape) -> torch.Tensor:
+    def shard(name: str, shape, specs) -> torch.Tensor:
         whole = fill(name, torch.empty(shape, device=device))
-        return local_shard(name, whole, mesh).clone(memory_format=torch.contiguous_format)
+        return local_shard(name, whole, mesh, specs).clone(
+            memory_format=torch.contiguous_format)
 
     return _build_sharded(config, mesh, shard)
 
@@ -235,8 +265,8 @@ def init_params(
 def zeros_sharded(config: TransformerConfig, mesh: DeviceMesh, device) -> Transformer:
     """A model holding this rank's shards, zero-filled, allocated at their
     own size: the restore template under a mesh."""
-    return _build_sharded(config, mesh, lambda name, shape: torch.zeros(
-        local_shape(name, shape, mesh), device=resolve_device(device)))
+    return _build_sharded(config, mesh, lambda name, shape, specs: torch.zeros(
+        local_shape(name, shape, mesh, specs), device=resolve_device(device)))
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -258,10 +288,12 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 
 def _weight(lp, name: str, mesh: Optional[DeviceMesh]) -> torch.Tensor:
     """A layer weight, its fsdp shards gathered under a mesh (the [in, out]
-    matrix keeps its tensor shard: the products are column/row parallel)."""
+    matrix keeps its tensor shard: the products are column/row parallel; an
+    expert stack [E, in, out] its expert shard too)."""
+    w = lp[name]
     if mesh is None:
-        return lp[name]
-    return gather(lp[name], mesh, LAYER_FSDP_DIM[name], ("fsdp",))
+        return w
+    return gather(w, mesh, LAYER_FSDP_DIM[name] + w.dim() - 2, ("fsdp",))
 
 
 def _qkv_products(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
@@ -296,28 +328,38 @@ def _attn_block(x, lp, config: TransformerConfig, positions, attn_impl: str,
 
 
 def _mlp_block(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
-    """norm -> SwiGLU."""
+    """norm -> SwiGLU, or the switch MoE; returns (out, aux), aux None for
+    the dense MLP."""
     c = config
     h = _rms_norm(x, lp["ln2"])
+    if c.n_experts > 0:
+        experts = {n: _weight(lp, n, mesh) for n in ("w1", "w3", "w2")}
+        return moe_mlp(h, lp["router"], experts, c, mesh)
     if mesh is not None:
         h = copy_to_tensor(h, mesh)
     gate = F.silu(h @ _weight(lp, "w1", mesh).to(c.dtype))
     up = h @ _weight(lp, "w3", mesh).to(c.dtype)
     out = (gate * up) @ _weight(lp, "w2", mesh).to(c.dtype)
-    return out if mesh is None else reduce_sum(out, mesh, ("tensor",))
+    return (out if mesh is None else reduce_sum(out, mesh, ("tensor",))), None
+
+
+def _add_mlp(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh]):
+    out, aux = _mlp_block(x, lp, config, mesh)
+    return x + out, aux
 
 
 def decoder_layer(x, lp, config: TransformerConfig, positions, attn_impl: str = "auto",
                   mesh: Optional[DeviceMesh] = None):
-    """One pre-norm decoder block on [b, s, d]."""
+    """One pre-norm decoder block on [b, s, d]; returns (x, aux)."""
     x = x + _attn_block(x, lp, config, positions, attn_impl, mesh)
-    return x + _mlp_block(x, lp, config, mesh)
+    return _add_mlp(x, lp, config, mesh)
 
 
 def _out_and_mlp(x, attn, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
-    """The layer after its attention: output projection, residual, MLP."""
+    """The layer after its attention: output projection, residual, MLP;
+    returns (x, aux)."""
     x = x + _out_projection(attn, lp, config, mesh)
-    return x + _mlp_block(x, lp, config, mesh)
+    return _add_mlp(x, lp, config, mesh)
 
 
 class _NormQKV(torch.autograd.Function):
@@ -376,9 +418,11 @@ _SELECTIVE = {"save_attn": _save_attention_outputs, "save_dots": _save_weight_pr
 
 def layer_body(config: TransformerConfig, positions,
                mesh: Optional[DeviceMesh] = None) -> Callable:
-    """`(x, lp) -> x` for one layer with the config's remat policy applied
-    (the JAX `make_layer_body`). Under a mesh `lp` holds the local shards,
-    gathered inside the checkpointed region, so a recompute gathers again:
+    """`(x, lp) -> (x, aux)` for one layer with the config's remat policy
+    applied (the JAX `make_layer_body`); aux is the MoE layer's
+    load-balancing loss, None for a dense layer. Under a mesh `lp` holds the
+    local shards, gathered inside the checkpointed region, so a recompute
+    gathers again (and a MoE layer routes and exchanges its tokens again):
 
     - "full": the whole layer under `checkpoint`; backward recomputes it,
       the attention forward included (2 forward launches per layer and
@@ -392,7 +436,7 @@ def layer_body(config: TransformerConfig, positions,
       out, lse), as JAX keeps the names attn_q/k/v and attn_out/lse.
       Output projection and MLP are recomputed under `checkpoint`.
     - "mlp_only": attention outside the checkpoint, unchanged; only the MLP
-      half is recomputed.
+      (or MoE) half is recomputed.
     """
     c = config
     impl = c.attn_impl
@@ -402,7 +446,7 @@ def layer_body(config: TransformerConfig, positions,
     if policy == "mlp_only":
         def body(x, lp):
             x = x + _attn_block(x, lp, c, positions, impl, mesh)
-            return x + checkpoint(_mlp_block, x, lp, c, mesh, use_reentrant=False)
+            return checkpoint(_add_mlp, x, lp, c, mesh, use_reentrant=False)
         return body
     if policy == "save_attn_qkv":
         def body(x, lp):
@@ -423,6 +467,43 @@ def layer_body(config: TransformerConfig, positions,
                                     use_reentrant=False, **kwargs)
 
 
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, config: TransformerConfig,
+                 mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """tokens [b, s] -> [b, s, D] in the compute dtype."""
+    if mesh is not None:
+        # The whole table before the row gather, as the JAX backbone
+        # replicates it explicitly.
+        embed = gather(embed, mesh, 1, PARAM_SPECS["embed"][1])
+    return embed.to(config.dtype)[tokens.long()]
+
+
+def run_layers(x: torch.Tensor, layers: List[Dict[str, torch.Tensor]], body: Callable):
+    """`body` over the layers in order: (x, the sum of their aux losses, or
+    None for dense layers)."""
+    aux = None
+    for lp in layers:
+        x, a = body(x, lp)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+def _backbone(model: Transformer, tokens: torch.Tensor, config: TransformerConfig):
+    if model.stages is not None:
+        raise ValueError("a pipelined model's hidden states live on its last stage: "
+                         "run loss_fn")
+    mesh = model.mesh
+    b, s = tokens.shape
+    offset = 0 if mesh is None else sequence_coordinate(mesh)[0] * s
+    x = embed_tokens(model.embed, tokens, config, mesh)
+    positions = torch.arange(offset, offset + s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    x, aux = run_layers(x, model.layers.unbind(), layer_body(config, positions, mesh))
+    if aux is not None:
+        aux = aux / config.n_layers  # the mean over layers (JAX aux_layers.mean())
+    return _rms_norm(x, model.ln_f), aux
+
+
 def backbone(model: Transformer, tokens: torch.Tensor,
              config: Optional[TransformerConfig] = None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, D]. `config`
@@ -430,22 +511,7 @@ def backbone(model: Transformer, tokens: torch.Tensor,
     a mesh, tokens and hidden states are this rank's rows of the batch and
     its slice of the sequence, and RoPE takes the slice's global positions
     (the JAX `_rope` docstring)."""
-    c = config or model.config
-    mesh = model.mesh
-    b, s = tokens.shape
-    offset = 0 if mesh is None else sequence_coordinate(mesh)[0] * s
-    embed = model.embed
-    if mesh is not None:
-        # The whole table before the row gather, as the JAX backbone
-        # replicates it explicitly.
-        embed = gather(embed, mesh, 1, PARAM_SPECS["embed"][1])
-    x = embed.to(c.dtype)[tokens.long()]
-    positions = torch.arange(offset, offset + s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
-    body = layer_body(c, positions, mesh)
-    for lp in model.layers.unbind():
-        x = body(x, lp)
-    return _rms_norm(x, model.ln_f)
+    return _backbone(model, tokens, config or model.config)[0]
 
 
 def _head_logits(x: torch.Tensor, lm_head: torch.Tensor,
@@ -484,31 +550,60 @@ def _head_nll(x, lm_head, targets, mesh: Optional[DeviceMesh] = None):
     return logz - target_logit
 
 
+def _head(x, lm_head, targets, config: TransformerConfig,
+          mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """Per-token cross-entropy of final-norm hidden states [b, s, D],
+    checkpointed under `remat_head`."""
+    if config.remat_head:
+        return checkpoint(_head_nll, x, lm_head, targets, mesh, use_reentrant=False)
+    return _head_nll(x, lm_head, targets, mesh)
+
+
+def final_nll(x, ln_f, lm_head, targets, config: TransformerConfig,
+              mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """The final norm, the head and the per-token cross-entropy of the last
+    layer's output x [b, s, D] (a pipeline's last stage)."""
+    return _head(_rms_norm(x, ln_f), lm_head, targets, config, mesh)
+
+
+def masked_sums(nll: torch.Tensor, mask: Optional[torch.Tensor],
+                mesh: Optional[DeviceMesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of nll*mask, sum of the mask), each over the global batch under
+    a mesh (summed over the batch axes and `sequence`)."""
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    if mesh is None:
+        return (nll * mask).sum(), mask.sum()
+    return (reduce_sum((nll * mask).sum(), mesh, TOKEN_AXES),
+            all_reduce(mask.sum(), mesh, TOKEN_AXES))
+
+
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
             config: Optional[TransformerConfig] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy; `batch` = {tokens, targets, mask}.
-    Under a mesh the batch is this rank's rows and sequence slice, and the
-    loss is the masked mean over the global batch on every rank: the sums
-    of nll*mask and of the mask are each summed over the batch axes and
-    `sequence` before the division."""
+    """Mean next-token cross-entropy, plus `router_aux_coef` times the
+    layers' mean load-balancing loss for MoE; `batch` = {tokens, targets,
+    mask}. Under a mesh the batch is this rank's rows and sequence slice,
+    and the loss is the masked mean over the global batch on every rank:
+    the sums of nll*mask and of the mask are each summed over the batch
+    axes and `sequence` before the division. A pipelined model
+    (`model.stages`) runs the GPipe schedule (pipeline.pipeline_loss), whose
+    backward the schedule drives."""
     config = config or model.config
+    if model.stages is not None:
+        from training_operator_tpu_torch.trainer.pipeline import pipeline_loss
+
+        return pipeline_loss(model, batch, config)
     mesh = model.mesh
-    x = backbone(model, batch["tokens"], config)
-    if config.remat_head:
-        nll = checkpoint(_head_nll, x, model.lm_head, batch["targets"], mesh,
-                         use_reentrant=False)
-    else:
-        nll = _head_nll(x, model.lm_head, batch["targets"], mesh)
+    x, aux = _backbone(model, batch["tokens"], config)
+    nll = _head(x, model.lm_head, batch["targets"], config, mesh)
     mask = batch.get("mask")
-    if mesh is None:
-        if mask is None:
-            return nll.mean()
-        mask = mask.float()
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    mask = torch.ones_like(nll) if mask is None else mask.float()
-    total = reduce_sum((nll * mask).sum(), mesh, TOKEN_AXES)
-    count = all_reduce(mask.sum(), mesh, TOKEN_AXES)
-    return total / torch.clamp(count, min=1.0)
+    if mesh is None and mask is None:
+        ce = nll.mean()
+    else:
+        total, count = masked_sums(nll, mask, mesh)
+        ce = total / torch.clamp(count, min=1.0)
+    if config.n_experts > 0:
+        return ce + config.router_aux_coef * aux
+    return ce
 
 
 # ----------------------------------------------------------------------
@@ -534,25 +629,54 @@ PARAM_SPECS: Dict[str, Tuple[Tuple[str, ...], ...]] = {
     "lm_head": (("fsdp",), ("tensor",)),
 }
 
-# The dim a layer's [in, out] matrix gathers over fsdp (its spec without [L]).
+# A MoE layer's expert stacks lead with the expert dim on `expert`; its
+# router is replicated (JAX model.py:110-116).
+_EXPERT = ("expert",)
+MOE_SPECS: Dict[str, Tuple[Tuple[str, ...], ...]] = {
+    "layers.router": ((), (), ()),
+    "layers.w1": ((), _EXPERT) + _COLUMN[1:], "layers.w3": ((), _EXPERT) + _COLUMN[1:],
+    "layers.w2": ((), _EXPERT) + _ROW[1:],
+}
+
+# The dim a layer's [in, out] matrix gathers over fsdp (its spec without
+# [L]); an expert stack's is one further (`_weight`).
 LAYER_FSDP_DIM = {name.split(".")[1]: spec.index(("fsdp",)) - 1
                   for name, spec in PARAM_SPECS.items()
                   if name.startswith("layers.") and ("fsdp",) in spec}
 
+Specs = Dict[str, Tuple[Tuple[str, ...], ...]]
 
-def param_specs(config: TransformerConfig) -> Dict[str, Tuple[Tuple[str, ...], ...]]:
-    """The JAX `param_specs(config)` by the port's parameter names (dense
-    only: the config refuses MoE)."""
+
+def param_specs(config: TransformerConfig) -> Specs:
+    """The JAX `param_specs(config)` by the port's parameter names: the
+    dense table, or with `n_experts > 0` the expert stacks' and the
+    router's."""
     config.validate()
-    return dict(PARAM_SPECS)
+    specs = dict(PARAM_SPECS)
+    if config.n_experts > 0:
+        specs.update(MOE_SPECS)
+    return specs
 
 
-def spec_axes(name: str) -> Tuple[str, ...]:
+def layout_specs(config: TransformerConfig, mesh: Optional[DeviceMesh]) -> Specs:
+    """How a rank holds the parameters on `mesh`: `param_specs`, with the
+    [L] dim of every layer weight on `pipeline` on a pipeline mesh (the
+    JAX `_stage_specs` fold, pipeline.py:37-41: each stage holds its L/P
+    layers). JAX keeps the whole stack on every pipeline rank at rest and
+    reshards it inside the step; the global tensors are the same."""
+    specs = param_specs(config)
+    if mesh is None or axis_size(mesh, "pipeline") == 1:
+        return specs
+    return {name: ((("pipeline",),) + spec[1:]) if name.startswith("layers.") else spec
+            for name, spec in specs.items()}
+
+
+def spec_axes(name: str, specs: Specs) -> Tuple[str, ...]:
     """The mesh axes that shard parameter `name`."""
-    return tuple(a for dim in PARAM_SPECS[name] for a in dim)
+    return tuple(a for dim in specs[name] for a in dim)
 
 
-def param_placements(name: str) -> list:
+def param_placements(name: str, specs: Specs = PARAM_SPECS) -> list:
     """The DTensor placements over AXIS_ORDER of parameter `name`: Shard(d)
     on each axis that shards dim d, Replicate elsewhere. Where two axes
     shard one dim (the embedding), AXIS_ORDER lists fsdp before tensor,
@@ -560,40 +684,40 @@ def param_placements(name: str) -> list:
     from torch.distributed.tensor import Replicate, Shard
 
     out = [Replicate() for _ in AXIS_ORDER]
-    for dim, axes in enumerate(PARAM_SPECS[name]):
+    for dim, axes in enumerate(specs[name]):
         for axis in axes:
             out[AXIS_ORDER.index(axis)] = Shard(dim)
     return out
 
 
-def _shard_index(name: str, dim: int, mesh: DeviceMesh) -> Tuple[int, int]:
-    """(this rank's block, block count) of parameter `name`'s dim `dim`."""
+def _shard_index(axes: Tuple[str, ...], mesh: DeviceMesh) -> Tuple[int, int]:
+    """(this rank's block, block count) of a dim sharded over `axes`."""
     index, count = 0, 1
-    for axis in PARAM_SPECS[name][dim]:
+    for axis in axes:
         index = index * axis_size(mesh, axis) + mesh.get_local_rank(axis)
         count *= axis_size(mesh, axis)
     return index, count
 
 
-def local_shape(name: str, shape, mesh: DeviceMesh) -> Tuple[int, ...]:
+def local_shape(name: str, shape, mesh: DeviceMesh, specs: Specs) -> Tuple[int, ...]:
     """The shape of this rank's shard of parameter `name` (whole `shape`)."""
     out = []
     for dim, size in enumerate(shape):
-        _, count = _shard_index(name, dim, mesh)
+        _, count = _shard_index(specs[name][dim], mesh)
         if size % count:
             raise ValueError(f"{name} dim {dim} of size {size} does not split "
-                             f"over {PARAM_SPECS[name][dim]} ({count} shards)")
+                             f"over {specs[name][dim]} ({count} shards)")
         out.append(size // count)
     return tuple(out)
 
 
-def local_shard(name: str, full: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
-    """The block of `full` that the JAX sharding of parameter `name` puts at
+def local_shard(name: str, full: torch.Tensor, mesh: DeviceMesh, specs: Specs) -> torch.Tensor:
+    """The block of `full` that the sharding of parameter `name` puts at
     this rank's mesh coordinate."""
-    local_shape(name, full.shape, mesh)  # raises where a dim does not split
+    local_shape(name, full.shape, mesh, specs)  # raises where a dim does not split
     out = full
     for dim in range(full.dim()):
-        index, count = _shard_index(name, dim, mesh)
+        index, count = _shard_index(specs[name][dim], mesh)
         out = out.chunk(count, dim)[index]
     return out
 
@@ -607,19 +731,32 @@ def _check_mesh(config: TransformerConfig, mesh) -> None:
     for what, n in (("n_heads", config.n_heads), ("n_kv_heads", config.n_kv_heads)):
         if n % tensor:
             raise ValueError(f"{what}={n} does not split over tensor={tensor}")
+    stages = axis_size(mesh, "pipeline")
+    if config.n_layers % stages:
+        raise ValueError(f"n_layers={config.n_layers} not divisible by pipeline={stages}")
+
+
+def _attach(model: Transformer, mesh: DeviceMesh, specs: Specs) -> Transformer:
+    """Sends the forward of a model holding its shards through `mesh`."""
+    model.mesh, model.specs = mesh, specs
+    if axis_size(mesh, "pipeline") > 1:
+        from training_operator_tpu_torch.trainer.pipeline import GroupStages
+
+        model.stages = GroupStages(mesh)
+    return model
 
 
 def _build_sharded(config: TransformerConfig, mesh: DeviceMesh,
-                   make: Callable[[str, Tuple[int, ...]], torch.Tensor]) -> Transformer:
-    """A sharded model whose parameter `name` is `make(name, whole shape)`,
-    made one parameter after another in the model's order; nothing whole is
-    allocated here."""
+                   make: Callable[[str, Tuple[int, ...], Specs], torch.Tensor]) -> Transformer:
+    """A sharded model whose parameter `name` is `make(name, whole shape,
+    layout specs)`, made one parameter after another in the model's order;
+    nothing whole is allocated here."""
     _check_mesh(config, mesh)
+    specs = layout_specs(config, mesh)
     model = Transformer(config, "meta")
     for name, p in list(model.named_parameters()):
-        _set_param(model, name, make(name, tuple(p.shape)))
-    model.mesh = mesh
-    return model
+        _set_param(model, name, make(name, tuple(p.shape), specs))
+    return _attach(model, mesh, specs)
 
 
 def _set_param(model: Transformer, name: str, value: torch.Tensor) -> None:
@@ -634,13 +771,14 @@ def shard_model(model: Transformer, mesh: DeviceMesh) -> Transformer:
     forward through the mesh. The batch given to `loss_fn` is then this
     rank's rows and sequence slice (mesh.shard_batch)."""
     _check_mesh(model.config, mesh)
-    if model.mesh is not None:
-        raise ValueError("the model is sharded already")
+    if model.mesh is not None or model.stages is not None:
+        raise ValueError("the model is sharded or pipelined already")
+    specs = layout_specs(model.config, mesh)
     for name, p in list(model.named_parameters()):
-        local = local_shard(name, p.detach(), mesh).clone(memory_format=torch.contiguous_format)
+        local = local_shard(name, p.detach(), mesh, specs).clone(
+            memory_format=torch.contiguous_format)
         _set_param(model, name, local)
-    model.mesh = mesh
-    return model
+    return _attach(model, mesh, specs)
 
 
 @torch.no_grad()
@@ -648,8 +786,17 @@ def reduce_gradients(model: Transformer) -> None:
     """After backward on a sharded model: sums each gradient over the axes
     that split the tokens (the batch axes and `sequence`) and do not shard
     its parameter (the fsdp sums already happened in the gathers'
-    backward), as the data-parallel all-reduce."""
-    mesh = model.mesh
+    backward), as the data-parallel all-reduce; and, on a pipeline mesh,
+    over `pipeline` for the parameters every stage holds whole (the
+    embedding's gradient lives on the first stage, the final norm's and the
+    head's on the last). An expert stack is not summed over `expert`: its
+    gradient already holds every token routed to this rank's experts,
+    through the all-to-all's backward."""
+    mesh, specs = model.mesh, model.specs
+    staged = axis_size(mesh, "pipeline") > 1
     for name, p in model.named_parameters():
-        axes = [a for a in TOKEN_AXES if a not in spec_axes(name)]
+        sharded = spec_axes(name, specs)
+        axes = [a for a in TOKEN_AXES if a not in sharded]
+        if staged and "pipeline" not in sharded:
+            axes.append("pipeline")
         all_reduce(p.grad, mesh, axes)

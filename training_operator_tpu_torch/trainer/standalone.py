@@ -14,8 +14,9 @@ card of the pod; 1 with `--device cpu`), each with its rank in the world of
 workers (distributed.worker_env) and its card `cuda:i`; one worker runs in
 the process itself. With a coordinator address or more than one worker in
 the world, each worker joins the process group (distributed.initialize,
-gloo with `--device cpu`), builds the mesh (mesh_from_env) and trains the
-state sharded on it; `--batch-size` is the global batch. It resumes from the
+gloo with `--device cpu`), builds the mesh (mesh_from_env; `pipeline` and
+`expert` axes included) and trains the state sharded on it; `--batch-size`
+is the global batch. It resumes from the
 newest checkpoint whenever one exists, onto this run's mesh, runs
 `train_loop` and exports the final step from worker 0. It runs on the card
 unless `--device cpu` is given.
@@ -250,7 +251,8 @@ def _train(args, device: torch.device, mesh) -> TrainState:
     # the rank's rows of each global batch.
     dataset = TokenDataset.synthetic(config.vocab_size, args.seq_len,
                                      num_rows=args.batch_size * 8)
-    loader = DataLoader(dataset, args.batch_size, device=device, mesh=mesh)
+    loader = DataLoader(dataset, args.batch_size, device=device, mesh=mesh,
+                        microbatches=config.pipeline_microbatches)
     ckpt = Checkpointer(args.checkpoint_dir, save_interval_steps=10)
     stats = train_loop(config, optimizer, state, loader, args.steps, ckpt, log=_say)
     ckpt.close()

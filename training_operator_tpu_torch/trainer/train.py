@@ -15,12 +15,16 @@ step for step:
   so the first step runs at lr 0 when the schedule starts at 0.
 
 Where JAX donates the state to the jitted step, the port updates the
-parameters and moments in place.
+parameters and moments in place, a tensor of more than `UPDATE_CHUNK`
+elements one run of its leading dim at a time: the update is elementwise,
+so the numbers are the same, and its temporaries stay that size (a MoE
+expert stack of the flagship's width is 3.6 GB).
 
 Under a mesh (JAX `train.py:56-174`) the state holds this rank's shards
 (built straight into the shards, model.init_params) and the moments are
 shards of the same layout. The step sums the gradients over the batch axes
-and `sequence` (model.reduce_gradients), takes the global norm with each
+and `sequence`, and on a pipeline mesh the stage-replicated parameters'
+over `pipeline` (model.reduce_gradients), takes the global norm with each
 element counted once (`sequence`, like `data`, replicates every
 parameter), and runs clip and AdamW
 elementwise on the local shards with the same count and lr on every rank.
@@ -44,11 +48,15 @@ from training_operator_tpu_torch.trainer.model import (
     loss_fn,
     param_placements,
     param_shapes,
+    Specs,
     reduce_gradients,
     resolve_device,
     spec_axes,
     zeros_sharded,
 )
+
+# The most elements AdamW.update treats at once (1 GiB of fp32).
+UPDATE_CHUNK = 1 << 28
 
 
 @dataclass
@@ -112,24 +120,27 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: AdamWState,
                params: Dict[str, torch.Tensor],
-               mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+               mesh: Optional[DeviceMesh] = None,
+               specs: Optional[Specs] = None) -> torch.Tensor:
         """One step, in place on `params` and `state`; returns the global
-        norm of the raw `grads` (local shards under a mesh)."""
-        g_norm = global_norm(grads, mesh)
+        norm of the raw `grads` (local shards under a mesh, laid out by
+        `specs`, the model's)."""
+        g_norm = global_norm(grads, mesh, specs)
         clip = g_norm >= self.clip_norm
         lr = self.schedule(state.count)
         state.count += 1
         bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** state.count
         bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** state.count
-        for name, p in params.items():
-            g = grads[name]
-            g = torch.where(clip, g / g_norm * self.clip_norm, g)
-            mu, nu = state.mu[name], state.nu[name]
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            upd = (mu / bc1.item()) / ((nu / bc2.item()).sqrt_() + self.eps)
-            upd.add_(p, alpha=self.weight_decay)
-            p.add_(upd, alpha=-lr)
+        for name, whole in params.items():
+            parts = -(-whole.numel() // UPDATE_CHUNK)
+            for p, g, mu, nu in zip(*(t.chunk(parts) for t in (
+                    whole, grads[name], state.mu[name], state.nu[name]))):
+                g = torch.where(clip, g / g_norm * self.clip_norm, g)
+                mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+                nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+                upd = (mu / bc1.item()) / ((nu / bc2.item()).sqrt_() + self.eps)
+                upd.add_(p, alpha=self.weight_decay)
+                p.add_(upd, alpha=-lr)
         return g_norm
 
 
@@ -140,17 +151,18 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.01,
 
 
 def global_norm(tensors: Dict[str, torch.Tensor],
-                mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+                mesh: Optional[DeviceMesh] = None,
+                specs: Optional[Specs] = None) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor, fp32, on their device.
-    Under a mesh the tensors are the local shards of the parameters of the
-    same names, and each element counts once: a shard adds its squares on
-    the one rank at coordinate 0 of every axis that replicates it, then one
-    all-reduce sums over the world."""
+    Under a mesh the tensors are the local shards, laid out by `specs`, of
+    the parameters of the same names, and each element counts once: a shard
+    adds its squares on the one rank at coordinate 0 of every axis that
+    replicates it, then one all-reduce sums over the world."""
     if mesh is None:
         return torch.sqrt(sum(t.float().square().sum() for t in tensors.values()))
     total = None
     for name, t in tensors.items():
-        sharded = spec_axes(name)
+        sharded = spec_axes(name, specs)
         owner = all(mesh.get_local_rank(a) == 0 for a in AXIS_ORDER if a not in sharded)
         sq = t.float().square().sum() if owner else t.new_zeros((), dtype=torch.float32)
         total = sq if total is None else total + sq
@@ -201,21 +213,21 @@ def state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
     another mesh (or none) reshards on read."""
     out = {"step": torch.tensor(state.step, dtype=torch.int64),
            "count": torch.tensor(state.opt_state.count, dtype=torch.int64)}
-    mesh = state.model.mesh
-    full = param_shapes(state.model.config)
-    for name, p in state.model.named_parameters():
+    model = state.model
+    full = param_shapes(model.config)
+    for name, p in model.named_parameters():
         for key, t in (("params.", p.detach()), ("mu.", state.opt_state.mu[name]),
                        ("nu.", state.opt_state.nu[name])):
-            if mesh is not None:
-                t = _as_dtensor(t, mesh, name, full[name])
+            if model.mesh is not None:
+                t = _as_dtensor(t, model.mesh, param_placements(name, model.specs), full[name])
             out[key + name] = t
     return out
 
 
-def _as_dtensor(local: torch.Tensor, mesh: DeviceMesh, name: str, shape) -> torch.Tensor:
+def _as_dtensor(local: torch.Tensor, mesh: DeviceMesh, placements, shape) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
-    return DTensor.from_local(local, mesh, param_placements(name), run_check=False,
+    return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta").stride())
 
@@ -250,7 +262,8 @@ def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None,
     gradients) and `step`, as tensors on the device except `step`; under a
     mesh, the global loss and norm on every rank. The batch must already lie
     on the step's device (the DataLoader puts it there); under a mesh it is
-    this rank's rows, and the state must be sharded on `mesh`."""
+    this rank's rows, and the state must be sharded on `mesh`. A pipelined
+    model's backward is its schedule's (pipeline.pipeline_loss)."""
     device = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -268,7 +281,7 @@ def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None,
         if mesh is not None:
             reduce_gradients(model)
         grads = {n: p.grad for n, p in params.items()}
-        grad_norm = optimizer.update(grads, state.opt_state, params, mesh)
+        grad_norm = optimizer.update(grads, state.opt_state, params, mesh, model.specs)
         for p in params.values():
             p.grad = None
         state.step += 1
