@@ -111,6 +111,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             and of the smaller launches, not a bubble or a hand-off (NCCL
             cannot put two ranks on one card).
 
+11. vision   the vision family's entry point run (vision.train_synthetic,
+            the counterpart of examples/vision_mnist.py): the default
+            VisionConfig (28x28x1, convs of 32 and 64 channels, dense 128,
+            bf16), batch 256, 60 SGD-momentum steps on one synthetic batch.
+            Every loss finite and the final accuracy above 0.9. Prints the
+            loss and accuracy at steps 0, 10, ... 50 and 59, ms/step (CUDA
+            events, the mean of steps 1-59, after step 0 as warm-up),
+            images/s and peak memory. Then the bf16 forward of the trained
+            parameters on the training batch against the same forward in
+            fp32: max |bf16 - fp32| <= VISION_BF16_TOL x max |fp32| and
+            the same argmax on every image.
+12. solver   the placement solver on the card (scheduler/packer.py): the
+            10k-node block of the solver bench (packer.scale_instance: 2500
+            slices of 4 hosts, 2000 gangs of 1, 2 or 4 hosts, 3 classes,
+            10000 candidates) through TorchSolver, after prewarm. The
+            placements must equal the host numpy arm's
+            (packer.solve_batch_numpy) bit for bit, cold (the candidates
+            uploaded in the solve) and warm (resident). Prints the rounds,
+            the median ms of 5 cold and of 5 warm solves (host clock around
+            the whole solve, the result on the host), and the numpy arm's
+            median ms of 5 on the same machine's CPU, labelled host time.
+
 The last lines are the `kernels` JSON line (each kernel's row with its
 launches in phases 4, 6, 8, 9 and 10), the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
@@ -147,6 +169,12 @@ inputs:
   block's out, dq, dk and dv to bf16 before the fp32 merge or sum, so its
   errors sit above one kernel's: on an H100 the scaled gradient errors
   read 0.013-0.015 against GRAD_TOL's 0.02.
+- vision: the bf16 logits within VISION_BF16_TOL of the largest fp32
+  logit, the same argmax. bf16 rounds the conv and dense inputs, weights
+  and outputs (2^-9 relative each); on an H100 the gap reads 3.1e-3 of
+  the largest logit after the 60 steps (3.3e-3 on the CPU, 5.0e-3 at the
+  init).
+- solver: equal, bit for bit: the rounds are integer arithmetic.
 - mesh: 1e-5 relative. A world of one runs the unsharded path's products
   and kernels on the same values; only the vocab-parallel logsumexp (max,
   exp, sum and log written out) and the copies of the size-1 collectives
@@ -715,6 +743,89 @@ def run_moe(card) -> dict:
     return launches
 
 
+# Phase 11's bf16 forward against fp32, relative to the largest fp32 logit.
+VISION_BF16_TOL = 2e-2
+
+
+def run_vision(card) -> None:
+    """Phase 11; see the module docstring. Raises on any failed check."""
+    import math
+
+    import torch
+
+    from training_operator_tpu_torch.trainer import vision
+
+    config, batch, steps = vision.VisionConfig(), 256, 60
+    torch.cuda.reset_peak_memory_stats()
+    out = vision.train_synthetic(config, steps=steps, batch=batch,
+                                 log=lambda msg: log("vision: " + msg))
+    losses, accs = out["losses"], out["accuracies"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"vision: a loss is not finite: {losses}")
+    if not accs[-1] > 0.9:
+        raise AssertionError(f"vision: final accuracy {accs[-1]} is not above 0.9")
+    timed = out["step_ms"][1:]
+    step_ms = sum(timed) / len(timed)
+    log(f"vision: {step_ms:.4f} ms/step (mean of steps 1-{steps - 1}), "
+        f"{batch / (step_ms / 1e3):.1f} images/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.4f} GB, loss/accuracy "
+        + ", ".join(f"{i}: {losses[i]:.6g}/{accs[i]:.3f}"
+                    for i in (*range(0, steps, 10), steps - 1))
+        + f" on {card}")
+    with torch.no_grad():
+        low = vision.vision_forward(out["params"], out["batch"]["images"], config)
+        ref = vision.vision_forward(out["params"], out["batch"]["images"],
+                                    dataclasses.replace(config, dtype=torch.float32))
+    gap = (low - ref).abs().max().item() / ref.abs().max().item()
+    if not gap <= VISION_BF16_TOL or not torch.equal(low.argmax(-1), ref.argmax(-1)):
+        raise AssertionError(f"vision: bf16 forward vs fp32 {gap} of the largest logit "
+                             f"(limit {VISION_BF16_TOL}) or the argmax differs")
+    log(f"vision: bf16 vs fp32 forward {gap:.6f} of the largest logit "
+        f"({ref.abs().max().item():.3f}), argmax equal on {batch} images")
+
+
+def run_solver(card) -> None:
+    """Phase 12; see the module docstring. Raises on any failed check."""
+    import statistics
+
+    import numpy as np
+
+    from training_operator_tpu_torch.scheduler import packer
+
+    inst = packer.scale_instance()
+    free, cands, item_class, item_active = inst[0], inst[1:5], inst[5], inst[6]
+    host_ms, ref = [], None
+    for _ in range(5):
+        t = time.perf_counter()
+        ref = packer.solve_batch_numpy(*inst)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+    solver = packer.TorchSolver()
+    k, c = cands[2].shape
+    solver.prewarm(free.shape[0], free.shape[1], items=len(item_class), cands=c, classes=k)
+
+    def timed(generation) -> float:
+        t = time.perf_counter()
+        chosen = solver.solve(free, cands, item_class, item_active, generation=generation)
+        ms = (time.perf_counter() - t) * 1e3
+        if chosen.dtype != np.int32 or not np.array_equal(chosen, ref):
+            bad = np.nonzero(chosen != ref)[0]
+            raise AssertionError(f"solver: card placements differ from the numpy arm at "
+                                 f"{bad.size} items, first {bad[:5].tolist()}")
+        return ms
+
+    cold = [timed(("cold", i)) for i in range(5)]
+    timed("warm")  # uploads the candidates once
+    warm = [timed("warm") for _ in range(5)]
+    stats = solver.last_stats
+    log(f"solver: {free.shape[0] * free.shape[1]} hosts, {len(item_class)} gangs, "
+        f"{int((ref >= 0).sum())} admitted, {stats['rounds']} rounds, padded (G, K, C) "
+        f"{stats['padded']}: placements equal the numpy arm's bit for bit; "
+        f"card {statistics.median(cold):.4f} ms cold (upload included), "
+        f"{statistics.median(warm):.4f} ms warm (median of 5 each, host clock, result on "
+        f"the host) on {card}; numpy arm {statistics.median(host_ms):.4f} ms "
+        f"(host time, median of 5, this machine's CPU)")
+
+
 def run_pipeline(card, phase4) -> dict:
     """Phase 10; see the module docstring. Raises on any failed check and
     returns the launch counts of its steps."""
@@ -951,6 +1062,13 @@ def main() -> int:
 
     # 10. pipeline
     pipeline_launches = run_pipeline(card, phase4)
+    torch.cuda.empty_cache()
+
+    # 11. vision
+    run_vision(card)
+
+    # 12. solver
+    run_solver(card)
 
     # report
     sources = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",

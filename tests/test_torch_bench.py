@@ -1,0 +1,46 @@
+"""The port's trainer benchmark on the CPU: what can be checked without a
+card (its refusals, the breakdown's arithmetic, the points
+run_trainer_bench measures). The card's numbers come from the card:
+tests/test_torch_cuda.py runs bench_train_step there at a small size."""
+
+import pytest
+
+from training_operator_tpu_torch.trainer import bench
+
+
+def test_bench_train_step_refuses_the_cpu():
+    config, _, _ = bench.flagship_config()
+    with pytest.raises(RuntimeError, match="measures the card"):
+        bench.bench_train_step(config, 1, 8, device="cpu")
+
+
+def test_phase_breakdown_by_subtraction(monkeypatch):
+    monkeypatch.setattr(bench, "_phase_times", lambda config, model, data, iters: (10.0, 32.5))
+    out = bench._phase_breakdown(None, None, None, step_ms=40.0, iters=3)
+    assert out == {"fwd_ms": 10.0, "bwd_ms": 22.5, "optimizer_ms": 7.5,
+                   "remat_recompute_ms_est": 10.0, "fwdbwd_ms": 32.5}
+
+
+def test_run_trainer_bench_measures_the_long_context_point(monkeypatch):
+    """run_trainer_bench's points, the JAX bench's attention_8k
+    (bench_attention at batch 2, seq 8192) among them."""
+    calls = {}
+
+    def record(name):
+        def fn(*args, **kwargs):
+            calls.setdefault(name, []).append((args, kwargs))
+            return name
+        return fn
+
+    for name in ("bench_train_step", "bench_attention", "bench_dataloader",
+                 "bench_trainer_e2e"):
+        monkeypatch.setattr(bench, name, record(name))
+    out = bench.run_trainer_bench(steps=3, device="cpu")
+    assert set(out) == {"train_step", "attention", "dataloader", "trainer_e2e",
+                        "attention_8k"}
+    config, batch, seq = bench.flagship_config()
+    (args, kwargs), (args_8k, kwargs_8k) = calls["bench_attention"]
+    assert args == (batch, seq, config.n_heads, config.head_dim)
+    assert args_8k == (2, 8192, config.n_heads, config.head_dim) and kwargs_8k["iters"] == 10
+    assert calls["bench_train_step"][0][1]["steps"] == 3
+

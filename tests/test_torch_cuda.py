@@ -285,3 +285,87 @@ def test_loopback_pipeline_on_the_card(card, n_experts):
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     if not n_experts:
         assert abs(metrics["loss"].item() - flat) <= 1e-3 * abs(flat)
+
+
+def test_vision_steps_on_the_card_match_the_cpu(card):
+    """The vision family at TestVisionFamily's size in fp32 (TF32 off): 3
+    SGD-momentum steps on the card against the same steps on the CPU from
+    the same parameters and batch, within 1e-4 relative (cuDNN's conv
+    algorithms sum in another order); then the bf16 default run learns."""
+    from training_operator_tpu_torch.trainer import vision
+    from training_operator_tpu_torch.trainer.train import SGD
+
+    config = vision.VisionConfig(image_size=16, channels=(8, 16), dense=32, dtype=torch.float32)
+    params = vision.init_vision_params(config, torch.Generator().manual_seed(0), "cpu")
+    batch = vision.synthetic_mnist(torch.Generator().manual_seed(1), 64, config)
+    runs = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            p = {n: t.detach().clone().to(dev).requires_grad_() for n, t in params.items()}
+            opt = SGD(0.1, momentum=0.9)
+            state = opt.init(p)
+            step = vision.make_vision_train_step(config, opt, device=dev)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            losses = []
+            for _ in range(3):
+                p, state, m = step(p, state, b)
+                losses.append(m["loss"].item())
+            runs[dev] = losses, {n: t.detach().cpu() for n, t in p.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (want, want_p), (got, got_p) = runs["cpu"], runs["cuda"]
+    for a, b in zip(got, want):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    for n in want_p:
+        assert ((got_p[n] - want_p[n]).norm() / want_p[n].norm()).item() <= 1e-4, n
+    out = vision.train_synthetic(steps=30, log=lambda _: None)
+    assert out["accuracies"][-1] > 0.9 and len(out["step_ms"]) == 30
+
+
+def test_solver_on_the_card_equals_numpy(card):
+    """TorchSolver on the card against the host numpy arm, bit for bit: 20
+    random instances (up to 16 slices of 8 hosts) and a 400-slice cut of
+    the 10k-node block, cold and warm."""
+    import numpy as np
+
+    from training_operator_tpu_torch.scheduler import packer
+
+    solver = packer.TorchSolver()
+    for seed in range(20):
+        rng = np.random.default_rng(seed)
+        s, k, c, g = (int(rng.integers(1, 17)), int(rng.integers(1, 5)),
+                      int(rng.integers(1, 65)), int(rng.integers(1, 97)))
+        cand_mask = rng.random((k, c, 8)) < 0.3
+        args = (rng.random((s, 8)) < 0.75, cand_mask,
+                rng.integers(0, s, size=(k, c)).astype(np.int32),
+                (rng.random((k, c)) < 0.9) & cand_mask.any(-1),
+                rng.integers(0, 8, size=(k, c)).astype(np.int32),
+                rng.integers(0, k, size=g).astype(np.int32), rng.random(g) < 0.9)
+        want = packer.solve_batch_numpy(*args)
+        assert np.array_equal(solver.solve(args[0], args[1:5], args[5], args[6]), want)
+    inst = packer.scale_instance(n_slices=400, n_gangs=320)
+    want = packer.solve_batch_numpy(*inst)
+    for _ in range(2):
+        got = solver.solve(inst[0], inst[1:5], inst[5], inst[6], generation=1)
+        assert got.dtype == np.int32 and np.array_equal(got, want)
+
+
+def test_bench_train_step_breakdown(card):
+    """bench_train_step at a small size returns the phase breakdown, the
+    executed-MFU estimate (remat on) and the first step's seconds."""
+    from training_operator_tpu_torch.trainer import bench
+    from training_operator_tpu_torch.trainer.model import TransformerConfig
+
+    config = TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2,
+                               n_kv_heads=2, d_ff=512, max_seq_len=256,
+                               remat_policy="save_attn_qkv", remat_head=True)
+    out = bench.bench_train_step(config, 2, 256, steps=3, warmup=2)
+    br = out["breakdown"]
+    assert set(br) == {"fwd_ms", "bwd_ms", "optimizer_ms", "remat_recompute_ms_est",
+                       "fwdbwd_ms"}
+    assert br["fwd_ms"] > 0 and br["fwdbwd_ms"] > br["fwd_ms"]
+    assert br["remat_recompute_ms_est"] == br["fwd_ms"]
+    assert out["mfu_executed_est"] == pytest.approx(out["mfu"] * 8 / 6)
+    assert out["compile_s"] > 0 and out["kernel_load"] in ("build", "cache", "loaded before")

@@ -1,5 +1,6 @@
 """Rank bodies for the port's multi-process tests (test_torch_mesh.py,
-test_torch_seq.py, test_torch_moe.py, test_torch_pipeline.py).
+test_torch_seq.py, test_torch_moe.py, test_torch_pipeline.py,
+test_torch_vision.py).
 
 Each function runs in every rank of a gloo CPU world started by
 `training_operator_tpu_torch.trainer.distributed.spawn`, which imports this
@@ -19,7 +20,7 @@ from torch.utils._pytree import tree_leaves
 from training_operator_tpu_torch.trainer import attention as pt_attention
 
 from training_operator_tpu_torch.trainer.checkpoint import Checkpointer, restore_into_mesh
-from training_operator_tpu_torch.trainer.convert import load_jax_params
+from training_operator_tpu_torch.trainer.convert import load_jax_params, vision_params_from_jax
 from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset
 from training_operator_tpu_torch.trainer.mesh import (
     MeshSpec,
@@ -40,7 +41,13 @@ from training_operator_tpu_torch.trainer.model import (
     shard_model,
 )
 from training_operator_tpu_torch.trainer.moe import moe_mlp, route
+from training_operator_tpu_torch.trainer.vision import (
+    local_rows,
+    make_vision_train_step,
+    vision_loss_fn,
+)
 from training_operator_tpu_torch.trainer.train import (
+    SGD,
     TrainState,
     init_train_state,
     make_optimizer,
@@ -471,4 +478,41 @@ def pipeline_world(axes, configs: Dict, params: Dict, batches: List[Dict],
     loader = DataLoader(TokenDataset(rows), 8, device="cpu", mesh=mesh, microbatches=4,
                         use_native=True)
     out["loader"] = [b["tokens"].numpy() for _, b in zip(range(2), loader)]
+    return out
+
+
+def vision_world(meshes: List[Dict[str, int]], config, params: Dict, batch: Dict,
+                 steps: int) -> List[Dict]:
+    """The vision family data-parallel on each mesh of `meshes` in turn:
+    the JAX parameters (numpy leaves) replicated on every rank,
+    `vision_loss_fn` of the global `batch` and its gradient (this rank's
+    rows' share), then `steps` SGD momentum steps on it. Returns, per mesh,
+    this rank's `loss0`, `grads0`, step `metrics` (loss, accuracy), final
+    `params` and `trace`, and the `refusal` of a 6-row batch (None when 6
+    rows split over the batch axes)."""
+    out = []
+    b = {"images": torch.from_numpy(batch["images"]),
+         "labels": torch.from_numpy(batch["labels"]).long()}
+    for axes in meshes:
+        mesh = build_mesh(MeshSpec(axes), "cpu")
+        p = {k: v.requires_grad_() for k, v in vision_params_from_jax(params).items()}
+        loss0 = vision_loss_fn(p, b, config, mesh)
+        grads0 = torch.autograd.grad(loss0, list(p.values()))
+        opt = SGD(0.1, momentum=0.9)
+        state = opt.init(p)
+        step = make_vision_train_step(config, opt, mesh=mesh, device="cpu")
+        metrics = []
+        for _ in range(steps):
+            p, state, m = step(p, state, b)
+            metrics.append((m["loss"].item(), m["accuracy"].item()))
+        try:
+            local_rows({"labels": torch.zeros(6)}, mesh)
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+        out.append({"refusal": refusal, "loss0": loss0.item(),
+                    "grads0": {n: g.numpy() for n, g in zip(p, grads0)},
+                    "metrics": metrics,
+                    "params": {n: t.detach().numpy() for n, t in p.items()},
+                    "trace": {n: t.numpy() for n, t in state.trace.items()}})
     return out

@@ -2,12 +2,12 @@
 kernels against their plain versions, and the training loop around them.
 
 Counterpart of training_operator_tpu/trainer/bench.py (flagship_config,
-_count_params, flops_per_step, bench_train_step without the phase
-breakdown, bench_attention, bench_dataloader, bench_trainer_e2e,
-run_trainer_bench). Times come from CUDA events around work on the card,
-and the loop's from the host clock; the entry points run on the card unless
-the caller passes another device, and a measurement that finds no card
-raises.
+_count_params, flops_per_step, bench_train_step with its phase breakdown,
+bench_attention, bench_dataloader, bench_trainer_e2e, run_trainer_bench
+with its attention_8k point). Times come from CUDA events around work on
+the card, and the loop's from the host clock; the entry points run on the
+card unless the caller passes another device, and a measurement that finds
+no card raises.
 """
 
 from __future__ import annotations
@@ -155,9 +155,18 @@ def cuda_time_ms(fn: Callable[[], Any], iters: int = 10, warmup: int = 2) -> flo
 
 
 def bench_train_step(config: TransformerConfig, batch: int, seq: int,
-                     steps: int = 10, warmup: int = 2, device=None) -> Dict[str, Any]:
+                     steps: int = 10, warmup: int = 2, device=None,
+                     breakdown: bool = True) -> Dict[str, Any]:
     """Mean time of the full train step (loss, backward, clip + AdamW) over
-    `steps` steps after `warmup`, on one fixed example batch."""
+    `steps` steps after `warmup`, on one fixed example batch. `compile_s` is
+    the first step's host seconds, fenced: it includes what the first use
+    of the flash kernels costs, which `kernel_load` names ("build": nvcc
+    compiled them; "cache": libraries built earlier were loaded; "loaded
+    before": this process had them already; None: the step ran no kernel).
+    `mfu_executed_est` rescales the MFU by 8/6 for the forward a remat step
+    recomputes (an upper estimate under a selective policy), None without
+    remat. With `breakdown`, `_phase_breakdown`'s phases."""
+    from training_operator_tpu_torch.trainer import kernels
     from training_operator_tpu_torch.trainer.train import (
         init_train_state,
         make_example_batch,
@@ -180,11 +189,20 @@ def bench_train_step(config: TransformerConfig, batch: int, seq: int,
         state, metrics = step_fn(state, data)
 
     torch.cuda.reset_peak_memory_stats(device)
-    step_ms = cuda_time_ms(one_step, iters=steps, warmup=warmup)
+    had_kernels = kernels.loaded() is not None
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize(device)
+    compile_s = time.perf_counter() - t0
+    got = kernels.loaded()
+    kernel_load = ("loaded before" if had_kernels else None if got is None
+                   else "build" if got.log else "cache")
+    step_ms = cuda_time_ms(one_step, iters=steps, warmup=max(0, warmup - 1))
     name = torch.cuda.get_device_name(device)
     peak = _peak(PEAK_BF16_FLOPS, name)
     achieved = flops_per_step(config, n_matmul, batch, seq) / (step_ms / 1e3)
-    return {
+    out = {
         "platform": "gpu",
         "device_kind": name,
         "params_m": total / 1e6,
@@ -194,8 +212,54 @@ def bench_train_step(config: TransformerConfig, batch: int, seq: int,
         "tokens_per_s": batch * seq / (step_ms / 1e3),
         "model_tflops_per_s": achieved / 1e12,
         "mfu": achieved / peak if peak else None,
+        "mfu_executed_est": achieved * (8.0 / 6.0) / peak if peak and config.remat else None,
+        "compile_s": compile_s,
+        "kernel_load": kernel_load,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
         "final_loss": float(metrics["loss"]),
+    }
+    if breakdown:
+        out["breakdown"] = _phase_breakdown(config, state.model, data, step_ms, steps)
+    return out
+
+
+def _phase_times(config: TransformerConfig, model, data, iters: int) -> Tuple[float, float]:
+    """(forward ms, forward + backward ms) of `model` on `data`, CUDA
+    events: the loss alone without autograd, then the loss and its
+    backward into the parameters' .grad (cleared before and after)."""
+    from training_operator_tpu_torch.trainer.model import loss_fn
+
+    def forward_only():
+        with torch.no_grad():
+            loss_fn(model, data, config)
+
+    def forward_backward():
+        for p in model.parameters():
+            p.grad = None
+        loss_fn(model, data, config).backward()
+
+    fwd_ms = cuda_time_ms(forward_only, iters=iters, warmup=1)
+    fwdbwd_ms = cuda_time_ms(forward_backward, iters=iters, warmup=1)
+    for p in model.parameters():
+        p.grad = None
+    return fwd_ms, fwdbwd_ms
+
+
+def _phase_breakdown(config: TransformerConfig, model, data, step_ms: float,
+                     iters: int) -> Dict[str, float]:
+    """One train step by ablation, as the JAX bench's `_phase_breakdown`:
+    `fwd_ms` the loss alone, `fwdbwd_ms` the loss and backward, `bwd_ms`
+    their difference (the remat recompute included), `optimizer_ms` the
+    step minus fwdbwd (global-norm clip + AdamW), and
+    `remat_recompute_ms_est` one forward's worth. Phases by subtraction:
+    attribution, not each phase's isolated time."""
+    fwd_ms, fwdbwd_ms = _phase_times(config, model, data, iters)
+    return {
+        "fwd_ms": fwd_ms,
+        "bwd_ms": fwdbwd_ms - fwd_ms,
+        "optimizer_ms": step_ms - fwdbwd_ms,
+        "remat_recompute_ms_est": fwd_ms,
+        "fwdbwd_ms": fwdbwd_ms,
     }
 
 
@@ -223,7 +287,6 @@ def profile_train_step(config: TransformerConfig, batch: int, seq: int,
     from torch.profiler import ProfilerActivity, profile
 
     from training_operator_tpu_torch.trainer.mesh import shard_batch
-    from training_operator_tpu_torch.trainer.model import loss_fn
     from training_operator_tpu_torch.trainer.train import (
         init_train_state,
         make_example_batch,
@@ -258,21 +321,7 @@ def profile_train_step(config: TransformerConfig, batch: int, seq: int,
 
     # Phases by subtraction, as the JAX bench's phase breakdown: forward
     # alone, forward + backward, and the rest of the step (clip + AdamW).
-    model = state.model
-
-    def forward_only():
-        with torch.no_grad():
-            loss_fn(model, data)
-
-    def forward_backward():
-        for p in model.parameters():
-            p.grad = None
-        loss_fn(model, data).backward()
-
-    fwd_ms = cuda_time_ms(forward_only, iters=steps, warmup=1)
-    fwdbwd_ms = cuda_time_ms(forward_backward, iters=steps, warmup=1)
-    for p in model.parameters():
-        p.grad = None
+    fwd_ms, fwdbwd_ms = _phase_times(config, state.model, data, steps)
     by_name: Dict[str, float] = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -670,9 +719,11 @@ def bench_trainer_e2e(steps: int = 20, ckpt_every: int = 10, warmup: int = 2,
 
 
 def run_trainer_bench(steps: int = 10, device=None) -> Dict[str, Any]:
-    """The flagship train step, the kernels at its attention shape, the
-    data path and the end-to-end loop on the card. Unlike the JAX version,
-    a failure raises instead of turning into an error entry."""
+    """The flagship train step with its phase breakdown, the kernels at its
+    attention shape and at the long-context point [2, 8192, 12, 128]
+    (`attention_8k`), the data path and the end-to-end loop on the card.
+    Unlike the JAX version, a failure raises instead of turning into an
+    error entry."""
     config, batch, seq = flagship_config()
     return {
         "train_step": bench_train_step(config, batch, seq, steps=steps, device=device),
@@ -680,6 +731,8 @@ def run_trainer_bench(steps: int = 10, device=None) -> Dict[str, Any]:
                                      device=device),
         "dataloader": bench_dataloader(),
         "trainer_e2e": bench_trainer_e2e(steps=2 * steps, ckpt_every=steps, device=device),
+        "attention_8k": bench_attention(2, 8192, config.n_heads, config.head_dim, iters=10,
+                                        device=device),
     }
 
 

@@ -7,7 +7,8 @@ the port's `Transformer` keeps exactly that layout, so the bridge only
 flattens the names ("layers.wq") and copies, after checking the names and
 shapes against the config's (model.param_shapes). The trees come in as numpy arrays (convert
 a JAX tree with `jax.tree.map(np.asarray, tree)` on the JAX side); nothing
-here imports JAX.
+here imports JAX. The vision family's convs go from JAX's HWIO to torch's
+OIHW (`vision_params_from_jax`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from training_operator_tpu_torch.trainer.model import Transformer, param_shapes
+from training_operator_tpu_torch.trainer.train import SGDState
 
 
 def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -73,3 +75,27 @@ def adam_moments_from_jax(opt_state: Any) -> Tuple[Dict[str, torch.Tensor], Dict
         if isinstance(node, (tuple, list)):
             stack.extend(node)
     raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
+
+
+def vision_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The vision family's JAX parameters (numpy leaves) -> the port's, fp32
+    CPU tensors: conv kernels from HWIO to OIHW; `w_dense` keeps its rows'
+    (h, w, c) order, since vision_forward flattens NHWC as JAX does."""
+    out = params_from_jax(tree)
+    for name in ("conv1", "conv2"):
+        out[name] = out[name].permute(3, 2, 0, 1).contiguous()
+    return out
+
+
+def sgd_state_from_jax(opt_state: Any) -> SGDState:
+    """The port's SGDState from an optax.sgd(momentum=...) state holding one
+    trace (the object with a `trace` field) over the vision family's
+    parameters, numpy leaves."""
+    stack = [opt_state]
+    while stack:
+        node = stack.pop()
+        if hasattr(node, "trace"):
+            return SGDState(trace=vision_params_from_jax(node.trace))
+        if isinstance(node, (tuple, list)):
+            stack.extend(node)
+    raise ValueError("no trace (momentum) state in the optimizer state")

@@ -147,6 +147,11 @@ def sass_counts(libraries: Dict[str, Path]) -> Dict[str, Dict[str, int]]:
     return counts
 
 
+def loaded() -> Optional[Kernels]:
+    """The kernels this process has loaded, or None before the first load."""
+    return _loaded
+
+
 def load() -> Kernels:
     """Builds (once per process and source hash) and loads the kernels."""
     global _loaded

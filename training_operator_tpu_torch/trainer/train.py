@@ -1,4 +1,5 @@
 """Train step: clip-by-global-norm + AdamW with a warmup-cosine schedule.
+(`SGD`, optax.sgd with momentum, is the vision family's optimizer.)
 
 Counterpart of training_operator_tpu/trainer/train.py on one device. The
 optimizer is written out by hand to match the JAX package's
@@ -142,6 +143,33 @@ class AdamW:
                 upd.add_(p, alpha=self.weight_decay)
                 p.add_(upd, alpha=-lr)
         return g_norm
+
+
+@dataclass
+class SGDState:
+    trace: Dict[str, torch.Tensor] = field(default_factory=dict)  # the momentum
+
+
+class SGD:
+    """optax.sgd(learning_rate, momentum): the trace mu = g + momentum*mu
+    from zeros (so the first step's mu is g), then update = -lr*mu; no
+    dampening, no Nesterov, no weight decay. The vision family's optimizer."""
+
+    def __init__(self, learning_rate: float = 0.1, momentum: float = 0.9):
+        self.learning_rate = learning_rate
+        self.momentum = momentum
+
+    def init(self, params: Dict[str, torch.Tensor]) -> SGDState:
+        return SGDState(trace={n: torch.zeros_like(p) for n, p in params.items()})
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor], state: SGDState,
+               params: Dict[str, torch.Tensor]) -> None:
+        """One step, in place on `params` and `state`."""
+        for name, p in params.items():
+            mu = state.trace[name]
+            mu.mul_(self.momentum).add_(grads[name])
+            p.sub_(self.learning_rate * mu)
 
 
 def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.01,
