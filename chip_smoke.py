@@ -7,15 +7,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device   the card must be there; prints nvidia-smi's name and power limit.
 2. build    builds the flash-attention kernels from trainer/csrc with nvcc;
-            prints ptxas's register/spill report and warnings and, per
-            library, the HGMMA (wgmma) and UTMALDG (TMA load) instructions
-            in its SASS (cuobjdump). A kernel of the "wgmma+tma" design
-            (kernels.DESIGN) with none of either, or any spill, fails the run.
+            prints ptxas's report (each kernel instantiation, its registers
+            and spills) and warnings and, per library, the HGMMA (wgmma)
+            and UTMALDG (TMA load) instructions in its SASS (cuobjdump),
+            and the same per kernel instantiation. A source of the
+            "wgmma+tma" design (kernels.DESIGN), or any kernel
+            instantiation in it, with none of either, or any spill, fails
+            the run.
 3. kernels  holds each kernel against its plain PyTorch version on the card
-            at the flagship attention shape [8, 2048, 12, 128] bf16 causal
-            and at [2, 1000, 4, 64] bf16, causal and not; times each at the
-            flagship shape beside its plain version, SDPA and its bound, and
-            the backward pair (dq then dk/dv) beside SDPA's whole backward.
+            at the flagship attention shape [8, 2048, 12, 128] bf16 causal,
+            at [2, 1000, 4, 64] bf16, causal and not, at phase 13's
+            attention shape [1, 4096, 8, 256] causal, at [2, 1000, 4, 256]
+            not causal, and at [4097, 32, 16, 64] causal, whose 65552
+            (batch, head)s are more than a grid's y dimension holds; times
+            each at the flagship shape and at [1, 4096, 8, 256] beside its
+            plain version, SDPA and its bound, and the backward pair (dq
+            then dk/dv) beside SDPA's whole backward.
 4. train    the flagship decoder (554M params, batch 8 x seq 2048, bf16,
             remat "save_attn_qkv" on every layer and remat of the head)
             through init_train_state / make_train_step, fed by the
@@ -132,10 +139,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             the median ms of 5 cold and of 5 warm solves (host clock around
             the whole solve, the result on the host), and the numpy arm's
             median ms of 5 on the same machine's CPU, labelled host time.
+13. d256     a decoder at Gemma-2B's widths (bench.gemma2b_config: vocab
+            256000, d_model 2048, 18 layers, 8 heads of 256 over one kv
+            head, d_ff 16384, 3.03B parameters), unsharded, batch 1 x seq
+            4096, bf16, remat "save_attn_qkv" + the head: the head_dim 256
+            kernels under a model. The step-0 loss within D256_LOSS_TOL of
+            the same parameters and batch through the plain attention path,
+            and the step-0 gradients of wq, wk and wv within GRAD_REL_TOL
+            per layer (phase 4's gates, the loss's scaled to the batch; see
+            D256_LOSS_TOL); then 1 warm-up step and 5 timed steps, 18/18/18
+            launches per step (counts reset just before), every loss finite.
+            Prints ms/step, tokens/s, MFU (bench.FLOPS_RULE), peak memory
+            (reset after phase 12) and the card.
 
 The last lines are the `kernels` JSON line (each kernel's row with its
-launches in phases 4, 6, 8, 9 and 10), the card's name and power limit, and
-`{"ok": true, "device": {...}}`.
+launches in phases 4, 6, 8, 9, 10 and 13, and its time, bound, plain and
+SDPA times, error and launches at head_dim 256 in the `_d256` keys), the
+card's name and power limit, and `{"ok": true, "device": {...}}`.
 
 Tolerances, bf16 kernel against the plain version in fp32 on the same bf16
 inputs:
@@ -160,7 +180,8 @@ inputs:
 - train: the step-0 loss through the flash kernels within 1e-4 of the same
   parameters through the plain attention path, and the step-0 gradients of
   wq, wk and wv (which reach the loss through dq, dk and dv) within
-  GRAD_REL_TOL in relative Frobenius norm per layer.
+  GRAD_REL_TOL in relative Frobenius norm per layer. Phase 13 the same,
+  with the loss within D256_LOSS_TOL.
 - loop: the restore bit for bit; the step after it within 1e-6 of the live
   state's (the same parameters, batch and kernels: any difference would be
   the card's summation order, which the kernels fix); the graft entry's
@@ -264,6 +285,13 @@ GRAD_TOL = 2e-2
 # H100 the worst layer reads 0.023 (wq, wk) and 0.016 (wv); the limit is
 # about twice that.
 GRAD_REL_TOL = 5e-2
+
+# Phase 13's step-0 loss, flash path against plain attention path: the
+# loss is a mean over 4,096 tokens, a quarter of phase 4's 16,384, so the
+# two paths' per-token bf16 differences average out half as far: phase 4's
+# 1e-4 scaled by sqrt(16384 / 4096) is 2e-4, and the limit is about twice
+# that, as for the other gates.
+D256_LOSS_TOL = 4e-4
 
 
 def attention_grads(model, batch, config):
@@ -881,6 +909,62 @@ def run_pipeline(card, phase4) -> dict:
     return launches
 
 
+def run_d256(card) -> dict:
+    """Phase 13; see the module docstring. Raises on any failed check and
+    returns the launch counts of its steps."""
+    import torch
+
+    from training_operator_tpu_torch.trainer import bench, flash
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    config, batch, seq = bench.gemma2b_config()
+    optimizer = make_optimizer(warmup_steps=1, total_steps=100)
+    state = init_train_state(config, optimizer)
+    step_fn = make_train_step(config, optimizer)
+    total, n_matmul = bench._count_params(state.model)
+    batches = example_batches(config, batch, seq, 6)
+    xla_loss, xla_grads = attention_grads(state.model, batches[0],
+                                          dataclasses.replace(config, attn_impl="xla"))
+    flash_loss, flash_grads = attention_grads(state.model, batches[0], config)
+    grad_errs = {
+        n: max(rel_frobenius(flash_grads[n][i], xla_grads[n][i])
+               for i in range(config.n_layers))
+        for n in xla_grads
+    }
+    del xla_grads, flash_grads
+    torch.cuda.empty_cache()
+    log(f"d256: {total} params ({n_matmul} in products), head_dim {config.head_dim}, "
+        f"{config.n_heads} heads over {config.n_kv_heads} kv head, batch {batch} x seq {seq}, "
+        f"{config.dtype}, remat {config.remat_policy} + head; step-0 loss plain attention "
+        f"{xla_loss:.6f} flash {flash_loss:.6f}; gradient rel err flash vs plain, worst "
+        f"layer: " + json.dumps(grad_errs))
+    if not max(grad_errs.values()) <= GRAD_REL_TOL:
+        raise AssertionError(f"d256 step-0 attention gradients, flash vs plain: {grad_errs} "
+                             f"beyond {GRAD_REL_TOL}")
+    per_step = {n: config.n_layers for n in flash.launches}
+    flash.reset_launches()
+    state, losses, times = timed_steps(step_fn, state, batches, per_step, "d256")
+    launches = dict(flash.launches)
+    gap = losses[0] - xla_loss
+    if not abs(gap) <= D256_LOSS_TOL:
+        raise AssertionError(f"d256 step-0 loss {losses[0]} vs plain-attention loss "
+                             f"{xla_loss}: gap {gap} beyond {D256_LOSS_TOL}")
+    step_ms = sum(times) / len(times)
+    mfu = bench.flops_per_step(config, n_matmul, batch, seq) / (step_ms / 1e3) \
+        / bench.PEAK_BF16_FLOPS["H100"]
+    log(f"d256: step-0 loss gap flash - plain {gap:.3e} (limit {D256_LOSS_TOL}); "
+        f"{step_ms:.2f} ms/step (mean of {len(times)}), {batch * seq / (step_ms / 1e3):.1f} "
+        f"tokens/s, MFU {mfu:.4f} of 989 TFLOP/s bf16 [{bench.FLOPS_RULE}], peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {launches} on {card}")
+    del state, step_fn, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -912,11 +996,19 @@ def main() -> int:
         + "; ".join(f"{src} ({kernels.DESIGN[src]}) HGMMA {n['HGMMA']} UTMALDG {n['UTMALDG']}"
                     for src, n in sass.items()))
     for line in k.log.splitlines():
-        if any(w in line for w in ("registers", "spill", "warning")) or line.startswith("=="):
+        if any(w in line for w in ("entry function", "registers", "spill", "warning")) \
+                or line.startswith("=="):
             log("  ptxas " + line.strip())
     for src, n in sass.items():
         if kernels.DESIGN[src] == "wgmma+tma" and not (n["HGMMA"] and n["UTMALDG"]):
             raise AssertionError(f"{src} is a wgmma+tma kernel but its SASS has {n}")
+    per_kernel = kernels.kernel_sass_counts(k.libraries)
+    for src, fns in per_kernel.items():
+        log(f"build: {src} per kernel " + json.dumps(fns))
+        short = [f for f, n in fns.items() if kernels.DESIGN[src] == "wgmma+tma"
+                 and "_kernel" in f and not (n["HGMMA"] and n["UTMALDG"])]
+        if short or not fns:
+            raise AssertionError(f"{src}: kernels without wgmma or TMA loads: {short or fns}")
     spills = [line.strip() for line in k.log.splitlines()
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
     if spills:
@@ -924,14 +1016,19 @@ def main() -> int:
 
     # 3. kernels
     flagship = (8, 2048, 12, 128)
-    cases = [(flagship, True), ((2, 1000, 4, 64), True), ((2, 1000, 4, 64), False)]
+    d256_config, d256_batch, d256_seq = bench.gemma2b_config()
+    d256 = (d256_batch, d256_seq, d256_config.n_heads, d256_config.head_dim)
+    cases = [(flagship, True), ((2, 1000, 4, 64), True), ((2, 1000, 4, 64), False),
+             (d256, True), ((2, 1000, 4, 256), False), ((4097, 32, 16, 64), True)]
     errors = {}
     for i, (shape, causal) in enumerate(cases):
         errs = check_kernels(flash, shape, causal, seed=i)
         errors[(shape, causal)] = errs
-        log(f"kernels: {list(shape)} causal={causal} " + json.dumps(errs))
+        log(f"kernels: {list(shape)} (batch*heads {shape[0] * shape[2]}) causal={causal} "
+            + json.dumps(errs))
     timing = bench.bench_attention(*flagship, causal=True, iters=10)
-    for name, row in timing.items():
+    timing_d256 = bench.bench_attention(*d256, causal=True, iters=10)
+    for name, row in (*timing.items(), *timing_d256.items()):
         log(f"timing: {name} " + json.dumps(row))
 
     # 4. train
@@ -1069,6 +1166,11 @@ def main() -> int:
 
     # 12. solver
     run_solver(card)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 13. d256
+    d256_launches = run_d256(card)
 
     # report
     sources = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",
@@ -1079,11 +1181,15 @@ def main() -> int:
         "flash_bwd_dkv": "training_operator_tpu/trainer/flash.py:217",
     }
     flag_errs = errors[(flagship, True)]
-    err_of = {"flash_fwd": flag_errs["out"], "flash_bwd_dq": flag_errs["dq"],
-              "flash_bwd_dkv": max(flag_errs["dk"], flag_errs["dv"])}
+    d256_errs = errors[(d256, True)]
+
+    def err_of(errs):
+        return {"flash_fwd": errs["out"], "flash_bwd_dq": errs["dq"],
+                "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+
     rows = []
     for name in per_step:
-        t = timing[name]
+        t, t256 = timing[name], timing_d256[name]
         rows.append({
             "name": name,
             "route": "cuda",
@@ -1097,7 +1203,7 @@ def main() -> int:
             "launches_ring": ring_launches[name],
             "launches_moe": moe_launches[name],
             "launches_pipeline": pipeline_launches[name],
-            "max_abs_err": err_of[name],
+            "max_abs_err": err_of(flag_errs)[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -1106,6 +1212,15 @@ def main() -> int:
             # No call computes dq or dk/dv alone: SDPA's whole backward,
             # the time of the pair (the `flash_bwd` timing line).
             "library_bwd_ms": t["library_bwd_ms"],
+            # Head_dim 256: phase 13's launches, and phase 3's timing and
+            # check at its attention shape [1, 4096, 8, 256] causal.
+            "launches_d256": d256_launches[name],
+            "ms_d256": t256["ms"],
+            "plain_ms_d256": t256["plain_ms"],
+            "bound_ms_d256": t256["bound_ms"],
+            "library_ms_d256": t256["library_ms"],
+            "library_bwd_ms_d256": t256["library_bwd_ms"],
+            "max_abs_err_d256": err_of(d256_errs)[name],
         })
     print(json.dumps({"kernels": rows}))
     print(card)

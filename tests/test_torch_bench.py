@@ -44,3 +44,37 @@ def test_run_trainer_bench_measures_the_long_context_point(monkeypatch):
     assert args_8k == (2, 8192, config.n_heads, config.head_dim) and kwargs_8k["iters"] == 10
     assert calls["bench_train_step"][0][1]["steps"] == 3
 
+
+
+def test_d256_runs_the_gemma_width_step_and_its_kernels(monkeypatch, capsys):
+    """`bench --d256`: bench_train_step with its phase breakdown and
+    profile_train_step on gemma2b_config, and bench_attention at its
+    attention shape [1, 4096, 8, 256] (head_dim 256), beside the card's
+    line."""
+    import json
+    import subprocess
+    import types
+
+    calls = {}
+
+    def record(name):
+        def fn(*args, **kwargs):
+            calls[name] = (args, kwargs)
+            return name
+        return fn
+
+    monkeypatch.setattr(bench, "bench_train_step", record("bench_train_step"))
+    monkeypatch.setattr(bench, "bench_attention", record("bench_attention"))
+    monkeypatch.setattr(bench, "profile_train_step", record("profile_train_step"))
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(
+        stdout="NVIDIA H100 80GB HBM3, 700.00 W\n"))
+    bench.main(["--d256"])
+    out = json.loads(capsys.readouterr().out)
+    assert out == {"card": "NVIDIA H100 80GB HBM3, 700.00 W",
+                   "train_step": "bench_train_step", "profile": "profile_train_step",
+                   "attention": "bench_attention"}
+    config, batch, seq = bench.gemma2b_config()
+    args, kwargs = calls["bench_train_step"]
+    assert args == (config, 1, 4096) and kwargs.get("breakdown", True)
+    assert calls["profile_train_step"][0] == (config, 1, 4096)
+    assert calls["bench_attention"][0] == (1, 4096, 8, 256)

@@ -35,10 +35,16 @@ def _inputs(shape, seed):
 # tiles; (1, 200, 2, 64) and (1, 333, 2, 64): ragged D=64 tiles;
 # (1, 64, 1, 64) and (2, 100, 3, 128): shorter than one 128-row q tile;
 # (1, 640, 2, 128): five q tiles, so one of dq's tile pairs is a tile with
-# itself; (4, 1000, 40, 64): more (batch, head)s than SMs, ragged.
+# itself; (4, 1000, 40, 64): more (batch, head)s than SMs, ragged. Head_dim
+# 256 (64-key forward tiles, 32-key dq tiles, dk/dv split over D):
+# (1, 200, 2, 256) and (2, 333, 3, 256) ragged, (1, 64, 1, 256) one key
+# tile, (1, 640, 2, 256) five q tiles. (4097, 32, 16, 64): 65552 (batch,
+# head)s, more than a grid's y dimension holds.
 @pytest.mark.parametrize("shape", [(2, 256, 4, 128), (1, 333, 2, 64), (1, 129, 2, 128),
                                    (2, 384, 3, 128), (1, 200, 2, 64), (1, 64, 1, 64),
-                                   (2, 100, 3, 128), (1, 640, 2, 128), (4, 1000, 40, 64)])
+                                   (2, 100, 3, 128), (1, 640, 2, 128), (4, 1000, 40, 64),
+                                   (1, 200, 2, 256), (2, 333, 3, 256), (1, 64, 1, 256),
+                                   (1, 640, 2, 256), (4097, 32, 16, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernels_match_plain(card, shape, causal):
     """Tolerances as in chip_smoke.py: out 1e-2 + 1e-2*|ref|, lse 1e-3,
@@ -63,11 +69,12 @@ def test_kernels_match_plain(card, shape, causal):
         assert worst <= 2e-2, (name, worst)
 
 
+@pytest.mark.parametrize("shape", [(2, 1000, 12, 128), (2, 1000, 4, 256)],
+                         ids=["d128", "d256"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_dq_is_deterministic(card, causal):
+def test_dq_is_deterministic(card, shape, causal):
     """dq uses no atomics: every entry is summed in one fixed order, so two
     launches on the same inputs agree bit for bit; a difference is a race."""
-    shape = (2, 1000, 12, 128)
     q, k, v, do = _inputs(shape, 2)
     b, s, h, _ = shape
     out, lse = flash.flash_fwd(q, k, v, causal)
@@ -141,6 +148,33 @@ def test_launch_counts(card):
     q, k, v, _ = (x.requires_grad_() for x in _inputs((1, 128, 2, 64), 1))
     flash.flash_attention(q, k, v).float().sum().backward()
     assert flash.launches == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+def test_dispatcher_takes_the_kernels_at_head_dim_256(card, impl):
+    """The dispatcher at head_dim 256 with one kv head (phase 13's
+    attention): "auto" and "flash" launch each of the three kernels once
+    for a forward and backward on bf16 inputs, and their gradients are
+    within 2e-2 in relative Frobenius norm of the plain path's in fp32 on
+    the same values (the kernels round p, ds and their outputs to bf16,
+    2^-9 relative each)."""
+    from training_operator_tpu_torch.trainer import attention
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((1, 256, 4, 256), generator=g, device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn((1, 256, 1, 256), generator=g, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    launches, grads = {}, {}
+    for path, dtype in ((impl, torch.bfloat16), ("xla", torch.float32)):
+        leaves = [x.detach().to(dtype).requires_grad_() for x in (q, k, v)]
+        flash.reset_launches()
+        attention.attention(*leaves, causal=True, impl=path).float().square().sum().backward()
+        launches[path] = dict(flash.launches)
+        grads[path] = [x.grad.float() for x in leaves]
+    assert launches[impl] == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert launches["xla"] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for name, a, b in zip(("dq", "dk", "dv"), grads[impl], grads["xla"]):
+        assert ((a - b).norm() / b.norm()).item() <= 2e-2, name
 
 
 def test_world_of_one_sharded_step_matches_the_unsharded(card, tmp_path):

@@ -31,7 +31,8 @@ def _pin_cpu():
 
 @pytest.mark.parametrize(
     "shape,causal",
-    [((2, 256, 4, 64), True), ((2, 256, 4, 64), False), ((1, 200, 2, 64), True)],
+    [((2, 256, 4, 64), True), ((2, 256, 4, 64), False), ((1, 200, 2, 64), True),
+     ((1, 256, 2, 256), True), ((1, 256, 2, 256), False), ((1, 200, 2, 256), True)],
 )
 def test_forward_matches_pallas(shape, causal):
     q, k, v = _inputs(0, shape)
@@ -47,7 +48,7 @@ def test_forward_matches_pallas(shape, causal):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(exp_lse)[:, :s], atol=2e-5)
 
 
-@pytest.mark.parametrize("shape", [(1, 128, 2, 64), (1, 200, 2, 64)])
+@pytest.mark.parametrize("shape", [(1, 128, 2, 64), (1, 200, 2, 64), (1, 128, 2, 256)])
 def test_gradients_match_pallas(shape):
     """The autograd rule (plain dq and dk/dv on the CPU) against jax.grad of
     the Pallas flash kernels; distinct q/k/v so every gradient path counts."""
@@ -60,6 +61,28 @@ def test_gradients_match_pallas(shape):
     (pt_flash.flash_attention(tq, tk, tv, True) ** 2).sum().backward()
     for got, want, name in zip((tq.grad, tk.grad, tv.grad), exp, ("dq", "dk", "dv")):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(4097, 32, 16, 64), (1, 4096, 8, 256), (2, 1000, 4, 128),
+                                   (1, 64, 65536, 64)])
+def test_what_auto_sends_the_kernels_they_take(shape):
+    """`auto` sends a CUDA tensor to the kernels whenever `kernel_supports`
+    says they take it, so the wrappers' own checks must then pass: head_dim
+    256, and batch*heads above 65535 (4097 x 16 = 65552, 1 x 65536), which
+    the dk/dv launch once could not put in its grid. Meta tensors carry the
+    shapes without memory."""
+    q = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    assert pt_flash.kernel_supports(q)
+    pt_flash._check_kernel_inputs(q, q, q, q)
+
+
+@pytest.mark.parametrize("head_dim,dtype", [(96, torch.bfloat16), (512, torch.bfloat16),
+                                            (64, torch.float32), (256, torch.float16)])
+def test_kernel_checks_refuse_what_the_kernels_do_not_take(head_dim, dtype):
+    q = torch.empty((1, 64, 2, head_dim), dtype=dtype, device="meta")
+    assert not pt_flash.kernel_supports(q)
+    with pytest.raises(ValueError, match="the flash kernels take"):
+        pt_flash._check_kernel_inputs(q, q, q)
 
 
 def test_lse_carries_no_gradient():

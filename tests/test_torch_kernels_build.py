@@ -85,3 +85,21 @@ def test_sass_counts_reads_cuobjdump(monkeypatch, tmp_path):
     counts = kernels.sass_counts({"fwd.cu": "a.so", "dq.cu": "b.so"})
     assert counts == {"fwd.cu": {"HGMMA": 2, "UTMALDG": 1},
                       "dq.cu": {"HGMMA": 0, "UTMALDG": 0}}
+
+
+def test_kernel_sass_counts_splits_by_function(monkeypatch, tmp_path):
+    """Per-kernel counts from cuobjdump's "Function :" sections: an
+    instantiation without wgmma or TMA shows as its own zero row."""
+    sass = ("\tcode for sm_90a\n"
+            "\t\tFunction : _ZN5flash10fwd_kernelILi256ELb1EEEv\n"
+            "  /*0100*/  HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24 ;\n"
+            "  /*0110*/  UTMALDG.4D [UR8], [UR10] ;\n"
+            "  /*0120*/  UTMALDG.4D [UR8], [UR12] ;\n"
+            "\t\tFunction : _ZN5flash10fwd_kernelILi64ELb1EEEv\n"
+            "  /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n")
+    monkeypatch.setattr(kernels, "nvcc_path", lambda: str(tmp_path / "bin" / "nvcc"))
+    monkeypatch.setattr(kernels.subprocess, "run", lambda cmd, **kwargs:
+                        subprocess.CompletedProcess(cmd, 0, stdout=sass, stderr=""))
+    assert kernels.kernel_sass_counts({"fwd.cu": "a.so"}) == {"fwd.cu": {
+        "_ZN5flash10fwd_kernelILi256ELb1EEEv": {"HGMMA": 1, "UTMALDG": 2},
+        "_ZN5flash10fwd_kernelILi64ELb1EEEv": {"HGMMA": 0, "UTMALDG": 0}}}

@@ -77,6 +77,37 @@ def pipeline_config() -> Tuple[TransformerConfig, int, int, int]:
     return dataclasses.replace(config, pipeline_microbatches=4), batch, seq, 2
 
 
+def gemma2b_config() -> Tuple[TransformerConfig, int, int]:
+    """(config, batch, seq) of chip_smoke.py phase 13: Gemma-2B's published
+    widths (Gemma Team 2024, "Gemma: Open Models Based on Gemini Research
+    and Technology", Table 1; the google/gemma-2b model card's config) on
+    the repo's decoder: vocab 256000, d_model 2048, 18 layers, 8 heads of
+    256 over one kv head (multi-query), d_ff 16384, rope theta 10000; bf16
+    compute and fp32 params, `save_attn_qkv` + `remat_head` as the
+    flagship; batch 1 x seq 4096. 3,030,460,416 parameters, 2,506,172,416
+    of them in products. Cuts: seq 4096, not Gemma's 8192 (at 8192 the head
+    and loss hold three [8192, 256000] fp32 logit buffers, ~25 GB, beside
+    48.5 GB of params, grads and AdamW moments); and the repo's decoder, so
+    SwiGLU, not GeGLU, an untied lm_head, no sqrt(d_model) embedding scale
+    and RMSNorm by w, not 1 + w. Head_dim 256 takes the flash kernels."""
+    return (
+        TransformerConfig(
+            vocab_size=256000,
+            d_model=2048,
+            n_layers=18,
+            n_heads=8,
+            n_kv_heads=1,
+            d_ff=16384,
+            max_seq_len=4096,
+            rope_theta=10000.0,
+            remat_policy="save_attn_qkv",
+            remat_head=True,
+        ),
+        1,
+        4096,
+    )
+
+
 def _count_params(model: torch.nn.Module) -> Tuple[int, int]:
     """(total, matmul-relevant active) parameter counts: the embedding table
     is a gather, not a product, and of a MoE layer's expert stacks one
@@ -748,7 +779,10 @@ def main(argv=None) -> None:
     `--ring`, `profile_ring` at chip_smoke.py phase 8's three cases; with
     `--moe` and `--pipeline`, `profile_train_step` on chip_smoke.py phase 9's
     and phase 10's configurations (`moe_config`, `pipeline_config`), beside
-    the step's MFU on active parameters (FLOPS_RULE)."""
+    the step's MFU on active parameters (FLOPS_RULE); with `--d256`,
+    `bench_train_step` with its phase breakdown on phase 13's Gemma-2B-width
+    configuration (`gemma2b_config`), its profile (`profile_train_step`) and
+    `bench_attention` at its attention shape [1, 4096, 8, 256]."""
     import argparse
     import json
     import subprocess
@@ -768,13 +802,21 @@ def main(argv=None) -> None:
                         help="profile the step of the 8-expert switch MoE flagship")
     parser.add_argument("--pipeline", action="store_true",
                         help="profile the flagship step as 2 loopback pipeline stages")
+    parser.add_argument("--d256", action="store_true",
+                        help="the Gemma-2B-width step (head_dim 256) and its kernels")
     args = parser.parse_args(argv)
     config, batch, seq = flagship_config()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    if args.moe or args.pipeline:
+    if args.d256:
+        config, batch, seq = gemma2b_config()
+        out = {"card": card,
+               "train_step": bench_train_step(config, batch, seq, steps=5, warmup=1),
+               "profile": profile_train_step(config, batch, seq),
+               "attention": bench_attention(batch, seq, config.n_heads, config.head_dim)}
+    elif args.moe or args.pipeline:
         stages = 0
         if args.moe:
             config, batch, seq = moe_config()

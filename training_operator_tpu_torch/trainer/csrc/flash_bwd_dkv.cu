@@ -9,12 +9,14 @@
 // ~0.25 GB moved.
 //
 // Design: one block of three warpgroups per (k tile of 128 keys,
-// batch*head). Warpgroup 2 is the producer and gives up its registers: one
-// thread loads the K and V tiles once by TMA and then streams 64-row q and
-// dO tiles through a two-stage ring of full/empty mbarriers; a second warp
-// copies the tiles' 64 lse (times log2 e) and delta values beside them and
-// arrives on the same full barrier. Warpgroups 0 and 1 are consumers with
-// 240 registers, each owning 64 keys and their fp32 dk and dv accumulators.
+// batch*head), the pairs folded into grid x (k tile fastest), so batch*heads
+// has no grid-y limit. Warpgroup 2 is the producer and gives up its
+// registers: one thread loads the K and V tiles once by TMA and then
+// streams 64-row q and dO tiles through a two-stage ring of full/empty
+// mbarriers; a second warp copies the tiles' 64 lse (times log2 e) and
+// delta values beside them and arrives on the same full barrier.
+// Warpgroups 0 and 1 are consumers with 240 registers, each owning 64 keys
+// and their fp32 dk and dv accumulators.
 // Per q tile, sᵀ = k qᵀ and dpᵀ = v dOᵀ are wgmma m64n64k16 with both
 // operands in shared memory; pᵀ = exp2(sᵀ scale log2 e - lse log2 e) and
 // dsᵀ = pᵀ (dpᵀ - delta) are formed in the accumulator layout (keys as rows,
@@ -27,13 +29,24 @@
 // diagonal or the end of the sequence. q rows past seq_len are masked, keys
 // past it are never written. No atomics: each block writes its own dk, dv
 // rows once, so results are the same from run to run.
+//
+// At D = 256 a warpgroup cannot hold dk and dv of 64 keys over the whole
+// head dim (2 x 128 fp32 registers a thread). There a block takes 64 keys,
+// both consumer warpgroups own all 64, and warpgroup w accumulates dk and dv
+// over head-dim columns 128 w .. 128 w + 127 only: each computes sᵀ and dpᵀ
+// over the whole head dim itself (so the block does 1.5x the four products'
+// FLOP), and its dv and dk products read the dO and q boxes of its half.
+// Its registers are then those of D = 128 (64 + 64 accumulators), and its
+// shared memory 192 KiB (K and V 32 KiB each, two stages of q and dO).
 #include "sm90_common.cuh"
 
 namespace flash {
 
 template <int D>
 struct DkvLayout {
-  static constexpr int BK = 128, BQ = 64, STAGES = 2;
+  static constexpr bool SPLIT = D == 256;  // the warpgroups split D, not the keys
+  static constexpr int BK = SPLIT ? 64 : 128, BQ = 64, STAGES = 2;
+  static constexpr int DW = SPLIT ? D / 2 : D;  // dk, dv columns of one warpgroup
   static constexpr int KV_BOX = BK * 128;  // bytes of one [BK x 64] box
   static constexpr int KV_BYTES = KV_BOX * (D / 64);  // the K or the V tile
   static constexpr int Q_BOX = BQ * 128;
@@ -61,11 +74,12 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
 
-  // Grid (k tile, batch*head): the blocks in flight share a few (batch,
-  // head)s, whose q and dO stay in L2; causal: the first k tiles do the most
-  // work.
-  const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  // Block x = k tile + n_k_tiles * batch*head: the blocks in flight share
+  // a few (batch, head)s, whose q and dO stay in L2; causal: the first k
+  // tiles do the most work.
+  const int n_kt = (S + BK - 1) / BK;
+  const int k0 = (blockIdx.x % n_kt) * BK;
+  const int bh = blockIdx.x / n_kt, b = bh / H, h = bh % H;
   const int qstart = CAUSAL ? k0 : 0;
   const int ntiles = (S - qstart + BQ - 1) / BQ;
   const int wg = threadIdx.x >> 7;
@@ -118,17 +132,21 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       }
     }
   } else {
-    // Consumers: warpgroup wg owns keys k0 + 64 wg .. + 63.
+    // Consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 (all D
+    // columns), or at D = 256 keys k0 .. + 63 and columns 128 wg .. + 127.
     reg_alloc<240>();
+    constexpr int DW = L::DW;
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, t = lane & 3;
-    const uint32_t k_addr = smem_addr(smem) + wg * 64 * 128;
+    const int key_off = L::SPLIT ? 0 : 64 * wg, col_off = L::SPLIT ? 128 * wg : 0;
+    const uint32_t k_addr = smem_addr(smem) + key_off * 128;
     const uint32_t v_addr = k_addr + L::KV_BYTES;
-    const int kbase = k0 + 64 * wg;
+    const uint32_t half = (col_off / 64) * L::Q_BOX;  // the q and dO boxes of its columns
+    const int kbase = k0 + key_off;
     const int key_lo = kbase + 16 * warp + (lane >> 2), key_hi = key_lo + 8;
 
-    float dk_acc[D / 2], dv_acc[D / 2];
+    float dk_acc[DW / 2], dv_acc[DW / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < DW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     mbar_wait(kv_full, 0);
 
     for (int j = 0; j < ntiles; ++j) {
@@ -190,10 +208,11 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc)  // 16 q rows = two 8-row groups
-        wgmma_rs_mn<D>(dv_acc, pa[kc], smem_desc(do_addr + kc * 2048, L::Q_BOX, 1024));
+        wgmma_rs_mn<DW>(dv_acc, pa[kc],
+                        smem_desc(do_addr + half + kc * 2048, L::Q_BOX, 1024));
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc)
-        wgmma_rs_mn<D>(dk_acc, da[kc], smem_desc(q_addr + kc * 2048, L::Q_BOX, 1024));
+        wgmma_rs_mn<DW>(dk_acc, da[kc], smem_desc(q_addr + half + kc * 2048, L::Q_BOX, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -202,9 +221,9 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     }
 
     if (key_lo < S) {
-      const long off = (((long)b * S + key_lo) * H + h) * D + 2 * t;
+      const long off = (((long)b * S + key_lo) * H + h) * D + col_off + 2 * t;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DW / 8; ++i) {
         *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
             pack_bf16(dk_acc[4 * i] * scale, dk_acc[4 * i + 1] * scale);
         *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
@@ -212,9 +231,9 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       }
     }
     if (key_hi < S) {
-      const long off = (((long)b * S + key_hi) * H + h) * D + 2 * t;
+      const long off = (((long)b * S + key_hi) * H + h) * D + col_off + 2 * t;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DW / 8; ++i) {
         *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
             pack_bf16(dk_acc[4 * i + 2] * scale, dk_acc[4 * i + 3] * scale);
         *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
@@ -229,14 +248,17 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
                     const void* lse, const void* delta, void* dk, void* dv, int B, int S,
                     int H, float scale, cudaStream_t stream) {
   using L = DkvLayout<D>;
+  static_assert(L::SMEM <= 232448, "more shared memory than a block may have");
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = encode_bshd(&tq, q, B, S, H, D, L::BQ);
   if (err == cudaSuccess) err = encode_bshd(&tdo, dout, B, S, H, D, L::BQ);
   if (err == cudaSuccess) err = encode_bshd(&tk, k, B, S, H, D, L::BK);
   if (err == cudaSuccess) err = encode_bshd(&tv, v, B, S, H, D, L::BK);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + L::BK - 1) / L::BK, B * H);
-  return launch(bwd_dkv_kernel<D, CAUSAL>, grid, dim3(384), L::SMEM, stream, tq, tk, tv, tdo,
+  const long blocks = (long)((S + L::BK - 1) / L::BK) * B * H;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
+  return launch(bwd_dkv_kernel<D, CAUSAL>, dim3((unsigned)blocks), dim3(384), L::SMEM, stream,
+                tq, tk, tv, tdo,
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
                 static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, scale,
                 scale * kLog2e);
@@ -256,5 +278,8 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   if (D == 128)
     return causal ? flash::run_dkv<128, true>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st)
                   : flash::run_dkv<128, false>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st);
+  if (D == 256)
+    return causal ? flash::run_dkv<256, true>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st)
+                  : flash::run_dkv<256, false>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,14 +13,15 @@
 // most one per SM, work through 128-row q tiles dealt in causal-balanced
 // pairs (PairSchedule). Warpgroup 2 is the producer: it gives up registers
 // (setmaxnreg) and one of its threads issues TMA loads, each item's q and
-// dO tiles (loaded once) and then its 64-key K and V tiles into
-// three-stage rings guarded by full/empty mbarriers. Warpgroups 0 and 1 are
-// consumers with 240 registers, each owning 64 query rows, whose lse (times
-// log2 e) and delta they keep in registers. Per key tile, s = q kᵀ and
-// dp = dO vᵀ are wgmma m64n64k16 with both operands in shared memory;
-// p = exp2(s scale log2 e - lse log2 e) and ds = p (dp - delta) are formed
-// in the fp32 accumulator layout and re-packed in registers as the A
-// operand of dq += ds k, with K as an MN-major B operand (transpose bit).
+// dO tiles (loaded once) and then its K and V tiles of BK keys (64; 32 at
+// D = 256) into three-stage rings guarded by full/empty mbarriers.
+// Warpgroups 0 and 1 are consumers with 240 registers, each owning 64 query
+// rows, whose lse (times log2 e) and delta they keep in registers. Per key
+// tile, s = q kᵀ and dp = dO vᵀ are wgmma m64nBKk16 with both operands in
+// shared memory; p = exp2(s scale log2 e - lse log2 e) and
+// ds = p (dp - delta) are formed in the fp32 accumulator layout and
+// re-packed in registers as the A operand of dq += ds k, with K as an
+// MN-major B operand (transpose bit).
 // V's stage is released once dp is done; K's only after ds k has read it,
 // one key tile later, which is why the rings have three stages: with two,
 // the load of K tile j+2 waits for tile j's ds k and is not hidden.
@@ -37,9 +38,12 @@
 
 namespace flash {
 
+// At D = 256 the key tiles are 32 rows: the q and dO tiles take 128 KiB,
+// and three stages of 64-row K and V tiles would add 192 KiB more (96 KiB
+// at 32 rows, 230,512 bytes in all of the 232,448 a block may have).
 template <int D>
 struct DqLayout {
-  static constexpr int BQ = 128, BK = 64, STAGES = 3;
+  static constexpr int BQ = 128, BK = D == 256 ? 32 : 64, STAGES = 3;
   static constexpr int Q_BOX = BQ * 128;  // bytes of one [BQ x 64] box
   static constexpr int KV_BOX = BK * 128;
   static constexpr int Q_BYTES = Q_BOX * (D / 64);  // the q or the dO tile
@@ -131,12 +135,17 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     // d = a bᵀ over the head dim, both from shared memory (q kᵀ, dO vᵀ),
     // one commit group with its own fences.
     auto score_product = [&](float (&d)[BK / 2], uint32_t a_addr, uint32_t b_addr) {
+      // At D = 256 the q and dO descriptors of the 2 x 16 k steps do not
+      // change over the key loop, and hoisted out of it they hold 64
+      // registers, enough to make ptxas spill: hiding the address makes
+      // them be formed again per tile.
+      if constexpr (D == 256) asm volatile("" : "+r"(a_addr));
       fence_regs(d);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t col = (kk & 3) * 32;  // bytes into the box's 128-byte rows
-        wgmma_ss_n64(d, smem_desc(a_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024),
+        wgmma_ss<BK>(d, smem_desc(a_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024),
                      smem_desc(b_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024), kk > 0);
       }
       wgmma_commit();
@@ -270,6 +279,7 @@ cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout
                    const void* lse, const void* delta, void* dq, int B, int S,
                    int H, float scale, cudaStream_t stream) {
   using L = DqLayout<D>;
+  static_assert(L::SMEM <= 232448, "more shared memory than a block may have");
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = encode_bshd(&tq, q, B, S, H, D, L::BQ);
   if (err == cudaSuccess) err = encode_bshd(&tdo, dout, B, S, H, D, L::BQ);
@@ -298,5 +308,8 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (D == 128)
     return causal ? flash::run_dq<128, true>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st)
                   : flash::run_dq<128, false>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st);
+  if (D == 256)
+    return causal ? flash::run_dq<256, true>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st)
+                  : flash::run_dq<256, false>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,7 @@
 //
 // Layout contract with trainer/flash.py: q, k, v, out, dO, dq, dk, dv are
 // contiguous bf16 [B, S, H, D] (row stride H*D elements); lse and delta are
-// contiguous fp32 [B*H, S]. D is 64 or 128. Keys at or past S are masked
+// contiguous fp32 [B*H, S]. D is 64, 128 or 256. Keys at or past S are masked
 // inside the kernels; rows at or past S are read as zeros and never written.
 //
 // Fragment layout of the fp32 accumulator (per warp, per 8 columns, the

@@ -12,15 +12,16 @@
 // Design: persistent blocks of three warpgroups, at most one per SM, each
 // working through (q tile of 128 rows, batch*head) items. Warpgroup 2 is the
 // producer: it gives up registers (setmaxnreg) and one of its threads
-// issues TMA loads, each item's q tile and then its 128-key K and V tiles
-// into two-stage rings guarded by full/empty mbarriers (K and V apart, so K
-// is released when its scores are done). Warpgroups 0 and 1 are consumers
-// with 240 registers, each owning 64 query rows: s = q kᵀ is wgmma
-// m64n128k16 with both operands in shared memory (a row-major K tile is the
-// K-major B operand), the online softmax runs on the fp32 accumulator in
-// registers (exp2 with log2 e folded into the scale), the probabilities are
-// re-packed in registers as the A operand, and o += p v is wgmma with V as
-// an MN-major B operand (transpose bit), so no transposed copy exists.
+// issues TMA loads, each item's q tile and then its K and V tiles of BK
+// keys (128; 64 at D = 256) into two-stage rings guarded by full/empty
+// mbarriers (K and V apart, so K is released when its scores are done).
+// Warpgroups 0 and 1 are consumers with 240 registers, each owning 64 query
+// rows: s = q kᵀ is wgmma m64nBKk16 with both operands in shared memory (a
+// row-major K tile is the K-major B operand), the online softmax runs on
+// the fp32 accumulator in registers (exp2 with log2 e folded into the
+// scale), the probabilities are re-packed in registers as the A operand,
+// and o += p v is wgmma with V as an MN-major B operand (transpose bit), so
+// no transposed copy exists.
 // Within a warpgroup the next tile's scores and the current p v are issued
 // together and the softmax runs under them; the two warpgroups take turns
 // to issue (named barriers), so one's softmax runs under the other's
@@ -35,9 +36,12 @@
 
 namespace flash {
 
+// At D = 256 the key tiles are 64 rows: with 128 the Q tile and the two
+// rings would take 320 KiB of shared memory (192 KiB at 64), and a
+// consumer's o accumulator alone holds 128 registers.
 template <int D>
 struct FwdLayout {
-  static constexpr int BQ = 128, BK = 128, STAGES = 2;
+  static constexpr int BQ = 128, BK = D == 256 ? 64 : 128, STAGES = 2;
   static constexpr int Q_BOX = BQ * 128;  // bytes of one [BQ x 64] box
   static constexpr int KV_BOX = BK * 128;
   static constexpr int Q_BYTES = Q_BOX * (D / 64);
@@ -187,8 +191,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t col = (kk & 3) * 32;  // bytes into the box's 128-byte rows
-        wgmma_ss_n128(sc, smem_desc(q_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024),
-                      smem_desc(k_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024), kk > 0);
+        wgmma_ss<BK>(sc, smem_desc(q_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024),
+                     smem_desc(k_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024), kk > 0);
       }
       wgmma_commit();
       fence_regs(sc);
@@ -315,6 +319,7 @@ template <int D, bool CAUSAL>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                     int S, int H, float scale, cudaStream_t stream) {
   using L = FwdLayout<D>;
+  static_assert(L::SMEM <= 232448, "more shared memory than a block may have");
   CUtensorMap tq, tk, tv;
   cudaError_t err = encode_bshd(&tq, q, B, S, H, D, L::BQ);
   if (err == cudaSuccess) err = encode_bshd(&tk, k, B, S, H, D, L::BK);
@@ -339,6 +344,9 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (D == 128)
     return causal ? flash::run_fwd<128, true>(q, k, v, o, lse, B, S, H, scale, st)
                   : flash::run_fwd<128, false>(q, k, v, o, lse, B, S, H, scale, st);
+  if (D == 256)
+    return causal ? flash::run_fwd<256, true>(q, k, v, o, lse, B, S, H, scale, st)
+                  : flash::run_fwd<256, false>(q, k, v, o, lse, B, S, H, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

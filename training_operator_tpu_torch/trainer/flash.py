@@ -18,8 +18,8 @@ rule, so selective remat can keep the forward op's outputs.
 Shapes follow the JAX package: q, k, v are [B, S, H, D] with equal head
 counts (GQA is expanded by attention.py's dispatcher); lse is [B*H, S, 1]
 fp32. Unlike the TPU kernels, nothing is padded to 128: the kernels mask
-keys past S themselves. On the card the kernels take bf16 and head_dim 64 or
-128; any other dtype or head_dim raises there.
+keys past S themselves. On the card the kernels take bf16 and head_dim 64,
+128 or 256, at any batch*heads; any other dtype or head_dim raises there.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from training_operator_tpu_torch.trainer import kernels
 _MASK = -1e30
 
 KERNEL_DTYPES = (torch.bfloat16,)
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 # Launches per kernel since the last reset_launches(): a run reads them to
 # show that its path went through the kernels. `launches_causal` counts the
@@ -54,7 +54,8 @@ def _count(name: str, causal: bool) -> None:
 
 
 def kernel_supports(q: torch.Tensor) -> bool:
-    """Whether the CUDA kernels take this dtype and head_dim."""
+    """Whether the CUDA kernels take this dtype and head_dim (what `auto`
+    sends them on the card; they take any batch, heads and length)."""
     return q.dtype in KERNEL_DTYPES and q.shape[-1] in KERNEL_HEAD_DIMS
 
 
@@ -133,8 +134,6 @@ def _check_kernel_inputs(*xs: torch.Tensor) -> None:
         if x.shape != q.shape or x.dtype != q.dtype:
             raise ValueError(f"flash inputs differ: {tuple(x.shape)} {x.dtype} vs "
                              f"{tuple(q.shape)} {q.dtype}")
-    if q.shape[0] * q.shape[2] > 65535:
-        raise ValueError(f"batch*heads {q.shape[0] * q.shape[2]} exceeds the grid's y limit")
 
 
 def _contig(x: torch.Tensor) -> torch.Tensor:

@@ -135,15 +135,41 @@ def build() -> tuple:
     return outs, time.perf_counter() - t0, "".join(log)
 
 
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def _sass(lib) -> str:
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
 def sass_counts(libraries: Dict[str, Path]) -> Dict[str, Dict[str, int]]:
     """{source: {"HGMMA": n, "UTMALDG": n}}: Hopper tensor-core (wgmma) and
     TMA-load instructions in each library's SASS, read with cuobjdump."""
-    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
     counts = {}
     for src, lib in libraries.items():
-        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
-        counts[src] = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        sass = _sass(lib)
+        counts[src] = {op: sass.count(op) for op in SASS_OPS}
+    return counts
+
+
+def kernel_sass_counts(libraries: Dict[str, Path]) -> Dict[str, Dict[str, Dict[str, int]]]:
+    """{source: {kernel: {"HGMMA": n, "UTMALDG": n}}}: the same counts per
+    compiled kernel (each template instantiation, by its mangled name, from
+    cuobjdump's "Function :" headers), so one instantiation of another form
+    cannot hide behind the others of its source."""
+    counts = {}
+    for src, lib in libraries.items():
+        per = counts[src] = {}
+        name = None
+        for line in _sass(lib).splitlines():
+            if "Function :" in line:
+                name = line.split("Function :", 1)[1].strip()
+                per[name] = dict.fromkeys(SASS_OPS, 0)
+            elif name is not None:
+                for op in SASS_OPS:
+                    per[name][op] += line.count(op)
     return counts
 
 
