@@ -6,23 +6,29 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device   the card must be there; prints nvidia-smi's name and power limit.
-2. build    builds the flash-attention kernels from trainer/csrc with nvcc;
+2. build    builds the flash-attention kernels from trainer/csrc with nvcc,
+            one process per source, all at once, and prints the seconds;
             prints ptxas's report (each kernel instantiation, its registers
-            and spills) and warnings and, per library, the HGMMA (wgmma)
-            and UTMALDG (TMA load) instructions in its SASS (cuobjdump),
-            and the same per kernel instantiation. A source of the
-            "wgmma+tma" design (kernels.DESIGN), or any kernel
-            instantiation in it, with none of either, or any spill, fails
-            the run.
-3. kernels  holds each kernel against its plain PyTorch version on the card
-            at the flagship attention shape [8, 2048, 12, 128] bf16 causal,
-            at [2, 1000, 4, 64] bf16, causal and not, at phase 13's
+            and spills) and warnings and, per library, the instructions its
+            design must show in its SASS (cuobjdump): HGMMA (wgmma) and
+            UTMALDG (TMA load) for the "wgmma+tma" sources, which hold the
+            bf16 and the fp16 instantiations, HMMA on TF32 (mma.sync) for
+            the "mma.sync-3xtf32" fp32 sources (kernels.DESIGN_SASS); and
+            the same per kernel instantiation, with the count of each
+            type's. Any instantiation without its design's instructions,
+            or any spill, fails the run.
+3. kernels  holds each kernel against its plain PyTorch version on the card:
+            in bf16 at the flagship attention shape [8, 2048, 12, 128]
+            causal, at [2, 1000, 4, 64], causal and not, at phase 13's
             attention shape [1, 4096, 8, 256] causal, at [2, 1000, 4, 256]
             not causal, and at [4097, 32, 16, 64] causal, whose 65552
-            (batch, head)s are more than a grid's y dimension holds; times
-            each at the flagship shape and at [1, 4096, 8, 256] beside its
-            plain version, SDPA and its bound, and the backward pair (dq
-            then dk/dv) beside SDPA's whole backward.
+            (batch, head)s are more than a grid's y dimension holds; in
+            fp16 and in fp32 at [8, 2048, 12, 128] causal, [2, 1000, 4, 64]
+            causal and not and [1, 4096, 8, 256] causal. Times each kernel
+            in each type at the flagship shape and at [1, 4096, 8, 256]
+            beside its plain version, SDPA in the same type and its bound
+            (bench.FLOP_RULES: fp32's at 3xTF32's 165 TFLOP/s), and the
+            backward pair (dq then dk/dv) beside SDPA's whole backward.
 4. train    the flagship decoder (554M params, batch 8 x seq 2048, bf16,
             remat "save_attn_qkv" on every layer and remat of the head)
             through init_train_state / make_train_step, fed by the
@@ -151,11 +157,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             launches per step (counts reset just before), every loss finite.
             Prints ms/step, tokens/s, MFU (bench.FLOPS_RULE), peak memory
             (reset after phase 12) and the card.
+14. fp32     the flagship in full precision (bench.flagship_fp32_config:
+            phase 4's model, batch and policy with dtype float32, 554M
+            params, nothing cut): the fp32 kernels under a model. The
+            step-0 loss within FP32_LOSS_TOL and the step-0 gradients of
+            wq, wk and wv within FP32_GRAD_REL_TOL per layer of the same
+            parameters and batch through the plain attention path; then 1
+            warm-up step and 3 timed steps, 12/12/12 launches per step
+            (counts reset just before), all of them the fp32 kernels' and
+            none bf16 or fp16 (flash.launches_dtype), every loss finite.
+            Prints ms/step, tokens/s, MFU against the bf16 peak as every
+            phase (so labelled), peak memory (reset after phase 13) and the
+            card.
 
-The last lines are the `kernels` JSON line (each kernel's row with its
-launches in phases 4, 6, 8, 9, 10 and 13, and its time, bound, plain and
-SDPA times, error and launches at head_dim 256 in the `_d256` keys), the
-card's name and power limit, and `{"ok": true, "device": {...}}`.
+The last lines are the `kernels` JSON line, the card's name and power
+limit, and `{"ok": true, "device": {...}}`. The `kernels` line has a row per
+wgmma kernel (bf16 launches in phases 4, 6, 8, 9, 10 and 13; time, bound,
+plain and SDPA times and error at the flagship shape and, in the `_d256`
+keys, at [1, 4096, 8, 256]; the same for the fp16 instantiation in the
+`_fp16` and `_fp16_d256` keys) and a row per fp32 kernel (`<name>_fp32`: phase 14's launches
+and the same fields in fp32).
 
 Tolerances, bf16 kernel against the plain version in fp32 on the same bf16
 inputs:
@@ -165,6 +186,9 @@ inputs:
 - lse: |kernel - plain| <= 1e-3. lse never passes through bf16: products of
   bf16 inputs are exact in fp32 and only summation order and the fast exp
   differ.
+- fp16: the bf16 rules (fp16 rounds at 2^-11, inside them).
+- fp32: out and lse within FP32_OUT_TOL, dq, dk, dv within FP32_GRAD_TOL,
+  max abs error; see those constants.
 - dq, dk, dv: elementwise, |kernel - plain| <= GRAD_TOL * (rms of the
   plain row + |plain| + 1e-2 * rms of the whole plain tensor), a row being
   one (batch, position, head) vector of head_dim entries. The kernels round
@@ -225,15 +249,18 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def check_kernels(flash, shape, causal, seed):
-    """Runs the three kernels once on random bf16 inputs of `shape` and
-    returns their max errors against the plain versions; raises beyond the
-    tolerances in the module docstring."""
+def check_kernels(flash, shape, causal, seed, dtype=None):
+    """Runs the three kernels once on random inputs of `shape` and `dtype`
+    (bf16 by default) and returns their max errors against the plain
+    versions; raises beyond the tolerances in the module docstring (fp32's
+    FP32_OUT_TOL and FP32_GRAD_TOL, the 2-byte types' elementwise rules)."""
     import torch
 
+    dtype = dtype or torch.bfloat16
     b, s, h, d = shape
+    where = f"at {shape} {dtype} causal={causal}"
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda", dtype=dtype)
                    for _ in range(4))
     out, lse = flash.flash_fwd(q, k, v, causal)
     torch.cuda.synchronize()
@@ -241,11 +268,14 @@ def check_kernels(flash, shape, causal, seed):
     ref_out, ref_lse = flash.flash_fwd_plain(qf, kf, vf, causal)
     out_err = (out.float() - ref_out).abs()
     lse_err = (lse - ref_lse).abs().max().item()
-    if not bool((out_err <= 1e-2 + 1e-2 * ref_out.abs()).all()):
-        raise AssertionError(f"flash_fwd out disagrees at {shape} causal={causal}: "
-                             f"max abs err {out_err.max().item()}")
-    if lse_err > 1e-3:
-        raise AssertionError(f"flash_fwd lse disagrees at {shape}: {lse_err}")
+    fp32 = dtype == torch.float32
+    out_ok = (out_err.max().item() <= FP32_OUT_TOL if fp32
+              else bool((out_err <= 1e-2 + 1e-2 * ref_out.abs()).all()))
+    if not out_ok:
+        raise AssertionError(f"flash_fwd out disagrees {where}: max abs err "
+                             f"{out_err.max().item()}")
+    if not lse_err <= (FP32_OUT_TOL if fp32 else 1e-3):
+        raise AssertionError(f"flash_fwd lse disagrees {where}: {lse_err}")
     delta = (dof * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
     dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
@@ -254,7 +284,13 @@ def check_kernels(flash, shape, causal, seed):
     ref_dk, ref_dv = flash.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal)
     errs = {"out": out_err.max().item(), "lse": lse_err}
     for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
-        errs.update(grad_errors(name, got, ref, f"at {shape} causal={causal}"))
+        if fp32:
+            err = (got - ref).abs().max().item()
+            if not err <= FP32_GRAD_TOL:
+                raise AssertionError(f"{name} disagrees {where}: max abs err {err}")
+            errs[name] = err
+        else:
+            errs.update(grad_errors(name, got, ref, where))
     del q, k, v, do, out, lse, ref_out, ref_lse, dq, dk, dv, ref_dq, ref_dk, ref_dv
     torch.cuda.empty_cache()
     return errs
@@ -277,6 +313,26 @@ def grad_errors(name, got, ref, where) -> dict:
 # H100 the worst reading is 0.0093 at the flagship shape and 0.0081 at
 # [2, 1000, 4, 64]: the largest of ~25M entries of 2^-9-sized noise.
 GRAD_TOL = 2e-2
+
+# fp32 kernels against their plain versions, max abs error: out and lse
+# within the JAX package's own fp32 bar for its kernels
+# (tests/test_trainer.py's forward check), dq, dk and dv within its fp32
+# gradient bar (and tests/test_torch_flash.py's). The kernels' 3xTF32
+# products drop ~2^-22 of each term, so they sit far inside both.
+FP32_OUT_TOL = 2e-5
+FP32_GRAD_TOL = 2e-4
+
+# Phase 14's gates, the fp32 flagship through the fp32 kernels against the
+# same state through the plain attention path: both run every product in
+# fp32 (the plain path's einsums as full-fp32 SGEMM, the kernels' as
+# 3xTF32) and differ only in summation order and the split's dropped terms
+# (~2^-22 of each), ~1e-6 of the attention outputs, so the gates sit far
+# inside phase 4's bf16 ones (1e-4, 5e-2): the step-0 loss within
+# FP32_LOSS_TOL absolute (~10x the loss's expected gap), the wq, wk, wv
+# gradients within FP32_GRAD_REL_TOL per layer in relative Frobenius norm
+# (the gradients' expected ~1e-5 after twelve layers' backward, times 100).
+FP32_LOSS_TOL = 1e-5
+FP32_GRAD_REL_TOL = 1e-3
 
 # Step-0 gradients of wq, wk, wv, flash path against plain attention path,
 # relative Frobenius norm per layer. Both paths round to bf16, at different
@@ -965,6 +1021,113 @@ def run_d256(card) -> dict:
     return launches
 
 
+def run_fp32(card) -> dict:
+    """Phase 14; see the module docstring. Raises on any failed check and
+    returns the launch counts of its steps (all fp32)."""
+    import torch
+
+    from training_operator_tpu_torch.trainer import bench, flash
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    config, batch, seq = bench.flagship_fp32_config()
+    optimizer = make_optimizer(warmup_steps=1, total_steps=100)
+    state = init_train_state(config, optimizer)
+    step_fn = make_train_step(config, optimizer)
+    total, n_matmul = bench._count_params(state.model)
+    batches = example_batches(config, batch, seq, 4)
+    xla_loss, xla_grads = attention_grads(state.model, batches[0],
+                                          dataclasses.replace(config, attn_impl="xla"))
+    flash_loss, flash_grads = attention_grads(state.model, batches[0], config)
+    grad_errs = {
+        n: max(rel_frobenius(flash_grads[n][i], xla_grads[n][i])
+               for i in range(config.n_layers))
+        for n in xla_grads
+    }
+    del xla_grads, flash_grads
+    torch.cuda.empty_cache()
+    gap = flash_loss - xla_loss
+    log(f"fp32: {total} params ({n_matmul} in products), batch {batch} x seq {seq}, "
+        f"{config.dtype}, remat {config.remat_policy} + head; step-0 loss plain attention "
+        f"{xla_loss:.7f} flash {flash_loss:.7f} (gap {gap:.3e}, limit {FP32_LOSS_TOL}); "
+        f"gradient rel err flash vs plain, worst layer: " + json.dumps(grad_errs)
+        + f" (limit {FP32_GRAD_REL_TOL})")
+    if not abs(gap) <= FP32_LOSS_TOL:
+        raise AssertionError(f"fp32 step-0 loss {flash_loss} vs plain-attention loss "
+                             f"{xla_loss}: gap {gap} beyond {FP32_LOSS_TOL}")
+    if not max(grad_errs.values()) <= FP32_GRAD_REL_TOL:
+        raise AssertionError(f"fp32 step-0 attention gradients, flash vs plain: {grad_errs} "
+                             f"beyond {FP32_GRAD_REL_TOL}")
+    per_step = {n: config.n_layers for n in flash.launches}
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    state, losses, times = timed_steps(step_fn, state, batches, per_step, "fp32")
+    launches = dict(flash.launches)
+    by_type = {t: dict(c) for t, c in flash.launches_dtype.items()}
+    want = {"fp32": {n: len(batches) * c for n, c in per_step.items()},
+            "bf16": dict.fromkeys(per_step, 0), "fp16": dict.fromkeys(per_step, 0)}
+    if by_type != want:
+        raise AssertionError(f"fp32 steps launched {by_type}, expected {want}")
+    step_ms = sum(times) / len(times)
+    mfu = bench.flops_per_step(config, n_matmul, batch, seq) / (step_ms / 1e3) \
+        / bench.PEAK_BF16_FLOPS["H100"]
+    log(f"fp32: {step_ms:.2f} ms/step (mean of {len(times)}), "
+        f"{batch * seq / (step_ms / 1e3):.1f} tokens/s, MFU {mfu:.4f} of 989 TFLOP/s bf16 "
+        f"[{bench.FLOPS_RULE}; the bf16 peak, as every phase, though the step runs in fp32], "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches by type "
+        f"{json.dumps(by_type)} on {card}")
+    del state, step_fn, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_type(mangled: str) -> str:
+    """The element type of a kernel instantiation from its mangled name:
+    fp16 (`__half`) or bf16 (`__nv_bfloat16`) for the wgmma kernels, fp32
+    for the fp32 sources' (which take no type parameter)."""
+    return "fp16" if "6__half" in mangled else "bf16" if "nv_bfloat16" in mangled else "fp32"
+
+
+def run_build() -> dict:
+    """Phase 2; see the module docstring. Raises on a failed build, a
+    kernel instantiation without its design's instructions or any spill;
+    returns the per-source SASS counts and the build's seconds."""
+    from training_operator_tpu_torch.trainer import kernels
+
+    k = kernels.load()
+    sass = kernels.sass_counts(k.libraries)
+    log(f"build: {k.build_seconds:.1f} s for {len(kernels.SOURCES)} sources (one nvcc each, "
+        f"in parallel); SASS " + "; ".join(
+            f"{src} ({kernels.DESIGN[src]}) " + " ".join(f"{op} {n[op]}" for op in
+                                                         kernels.DESIGN_SASS[kernels.DESIGN[src]])
+            for src, n in sass.items()))
+    for line in k.log.splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill", "warning")) \
+                or line.startswith("=="):
+            log("  ptxas " + line.strip())
+    per_kernel = kernels.kernel_sass_counts(k.libraries)
+    for src, fns in per_kernel.items():
+        log(f"build: {src} per kernel " + json.dumps(fns))
+        need = kernels.DESIGN_SASS[kernels.DESIGN[src]]
+        by_type = {}
+        for f, n in fns.items():
+            if "_kernel" in f:
+                by_type.setdefault(kernel_type(f), []).append(min(n[op] for op in need))
+        log(f"build: {src} instantiations by type, each with {' and '.join(need)}: "
+            + ", ".join(f"{t} {len(v)} (fewest {min(v)})" for t, v in sorted(by_type.items())))
+    missing = kernels.missing_sass(per_kernel)
+    if missing:
+        raise AssertionError(f"kernels without their design's instructions: {missing}")
+    spills = [line.strip() for line in k.log.splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    if spills:
+        raise AssertionError(f"ptxas reports spills: {spills}")
+    return {"sass": sass, "seconds": k.build_seconds}
+
+
 def main() -> int:
     import torch
 
@@ -990,29 +1153,7 @@ def main() -> int:
         f"| count {torch.cuda.device_count()}")
 
     # 2. build
-    k = kernels.load()
-    sass = kernels.sass_counts(k.libraries)
-    log(f"build: {k.build_seconds:.1f} s for {len(kernels.SOURCES)} sources; SASS "
-        + "; ".join(f"{src} ({kernels.DESIGN[src]}) HGMMA {n['HGMMA']} UTMALDG {n['UTMALDG']}"
-                    for src, n in sass.items()))
-    for line in k.log.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill", "warning")) \
-                or line.startswith("=="):
-            log("  ptxas " + line.strip())
-    for src, n in sass.items():
-        if kernels.DESIGN[src] == "wgmma+tma" and not (n["HGMMA"] and n["UTMALDG"]):
-            raise AssertionError(f"{src} is a wgmma+tma kernel but its SASS has {n}")
-    per_kernel = kernels.kernel_sass_counts(k.libraries)
-    for src, fns in per_kernel.items():
-        log(f"build: {src} per kernel " + json.dumps(fns))
-        short = [f for f, n in fns.items() if kernels.DESIGN[src] == "wgmma+tma"
-                 and "_kernel" in f and not (n["HGMMA"] and n["UTMALDG"])]
-        if short or not fns:
-            raise AssertionError(f"{src}: kernels without wgmma or TMA loads: {short or fns}")
-    spills = [line.strip() for line in k.log.splitlines()
-              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
-    if spills:
-        raise AssertionError(f"ptxas reports spills: {spills}")
+    build = run_build()
 
     # 3. kernels
     flagship = (8, 2048, 12, 128)
@@ -1020,16 +1161,23 @@ def main() -> int:
     d256 = (d256_batch, d256_seq, d256_config.n_heads, d256_config.head_dim)
     cases = [(flagship, True), ((2, 1000, 4, 64), True), ((2, 1000, 4, 64), False),
              (d256, True), ((2, 1000, 4, 256), False), ((4097, 32, 16, 64), True)]
+    # fp16 and fp32: the flagship and d256 shapes (timed) and the odd length.
+    typed = [(flagship, True), ((2, 1000, 4, 64), True), ((2, 1000, 4, 64), False),
+             (d256, True)]
     errors = {}
-    for i, (shape, causal) in enumerate(cases):
-        errs = check_kernels(flash, shape, causal, seed=i)
-        errors[(shape, causal)] = errs
-        log(f"kernels: {list(shape)} (batch*heads {shape[0] * shape[2]}) causal={causal} "
-            + json.dumps(errs))
-    timing = bench.bench_attention(*flagship, causal=True, iters=10)
-    timing_d256 = bench.bench_attention(*d256, causal=True, iters=10)
-    for name, row in (*timing.items(), *timing_d256.items()):
-        log(f"timing: {name} " + json.dumps(row))
+    for i, (shape, causal, dtype) in enumerate(
+            [(sh, c, torch.bfloat16) for sh, c in cases]
+            + [(sh, c, dt) for dt in (torch.float16, torch.float32) for sh, c in typed]):
+        errs = check_kernels(flash, shape, causal, seed=i, dtype=dtype)
+        errors[(shape, causal, dtype)] = errs
+        log(f"kernels: {list(shape)} {str(dtype).removeprefix('torch.')} (batch*heads "
+            f"{shape[0] * shape[2]}) causal={causal} " + json.dumps(errs))
+    timing, timing_d256 = {}, {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        timing[dtype] = bench.bench_attention(*flagship, causal=True, iters=10, dtype=dtype)
+        timing_d256[dtype] = bench.bench_attention(*d256, causal=True, iters=10, dtype=dtype)
+        for name, row in (*timing[dtype].items(), *timing_d256[dtype].items()):
+            log(f"timing: {name} " + json.dumps(row))
 
     # 4. train
     config, batch, seq = bench.flagship_config()
@@ -1171,56 +1319,76 @@ def main() -> int:
 
     # 13. d256
     d256_launches = run_d256(card)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 14. fp32
+    fp32_launches = run_fp32(card)
 
     # report
-    sources = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",
-               "flash_bwd_dkv": "flash_bwd_dkv.cu"}
+    sass = build["sass"]
     replaces = {
         "flash_fwd": "training_operator_tpu/trainer/flash.py:89",
         "flash_bwd_dq": "training_operator_tpu/trainer/flash.py:177",
         "flash_bwd_dkv": "training_operator_tpu/trainer/flash.py:217",
     }
-    flag_errs = errors[(flagship, True)]
-    d256_errs = errors[(d256, True)]
 
-    def err_of(errs):
+    def err_of(shape, dtype):
+        errs = errors[(shape, True, dtype)]
         return {"flash_fwd": errs["out"], "flash_bwd_dq": errs["dq"],
                 "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
 
+    def timed(name, dtype, suffix=""):
+        """The timing fields of one kernel at the flagship shape and (the
+        `_d256` keys) at [1, 4096, 8, 256], each key with `suffix` before
+        `_d256`. dq and dk/dv have no call of their own: `library_bwd_ms`
+        is SDPA's whole backward, the time of the pair (the `flash_bwd`
+        timing line)."""
+        out = {}
+        for tail, t, shape in (("", timing[dtype][name], flagship),
+                               ("_d256", timing_d256[dtype][name], d256)):
+            out.update({f"{key}{suffix}{tail}": t[key] for key in
+                        ("ms", "plain_ms", "bound_ms", "library_ms", "library_bwd_ms")})
+            out[f"max_abs_err{suffix}{tail}"] = err_of(shape, dtype)[name]
+        return out
+
     rows = []
     for name in per_step:
-        t, t256 = timing[name], timing_d256[name]
+        src = f"{name}.cu"
+        t = timing[torch.bfloat16][name]
         rows.append({
             "name": name,
             "route": "cuda",
-            "design": kernels.DESIGN[sources[name]],
-            "hgmma": sass[sources[name]]["HGMMA"],
-            "utmaldg": sass[sources[name]]["UTMALDG"],
-            "source": f"training_operator_tpu_torch/trainer/csrc/{sources[name]}",
+            "design": kernels.DESIGN[src],
+            "hgmma": sass[src]["HGMMA"],
+            "utmaldg": sass[src]["UTMALDG"],
+            "source": f"training_operator_tpu_torch/trainer/csrc/{src}",
             "replaces": replaces[name],
             "launches": train_launches[name],
             "launches_mesh": mesh_launches[name],
             "launches_ring": ring_launches[name],
             "launches_moe": moe_launches[name],
             "launches_pipeline": pipeline_launches[name],
-            "max_abs_err": err_of(flag_errs)[name],
-            "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            # No call computes dq or dk/dv alone: SDPA's whole backward,
-            # the time of the pair (the `flash_bwd` timing line).
-            "library_bwd_ms": t["library_bwd_ms"],
-            # Head_dim 256: phase 13's launches, and phase 3's timing and
-            # check at its attention shape [1, 4096, 8, 256] causal.
             "launches_d256": d256_launches[name],
-            "ms_d256": t256["ms"],
-            "plain_ms_d256": t256["plain_ms"],
-            "bound_ms_d256": t256["bound_ms"],
-            "library_ms_d256": t256["library_ms"],
-            "library_bwd_ms_d256": t256["library_bwd_ms"],
-            "max_abs_err_d256": err_of(d256_errs)[name],
+            "bound_by": t["bound_by"],
+            # bf16 at both shapes; the fp16 instantiation's fields beside
+            # them (`_fp16`), held to the same rules and the same bound.
+            **timed(name, torch.bfloat16),
+            **timed(name, torch.float16, "_fp16"),
+        })
+    for name in per_step:
+        src = f"{name}_fp32.cu"
+        rows.append({
+            "name": f"{name}_fp32",
+            "route": "cuda",
+            "design": kernels.DESIGN[src],
+            "hmma_tf32": sass[src]["HMMA.TF32"],
+            "source": f"training_operator_tpu_torch/trainer/csrc/{src}",
+            "replaces": replaces[name],
+            "launches": fp32_launches[name],
+            "bound_by": timing[torch.float32][name]["bound_by"],
+            "bound_rule": timing[torch.float32][name]["bound_rule"],
+            **timed(name, torch.float32),
         })
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -78,3 +78,64 @@ def test_d256_runs_the_gemma_width_step_and_its_kernels(monkeypatch, capsys):
     assert args == (config, 1, 4096) and kwargs.get("breakdown", True)
     assert calls["profile_train_step"][0] == (config, 1, 4096)
     assert calls["bench_attention"][0] == (1, 4096, 8, 256)
+
+
+def test_fp32_runs_the_full_precision_flagship_and_its_kernels(monkeypatch, capsys):
+    """`bench --fp32`: bench_train_step with its phase breakdown and
+    profile_train_step on flagship_fp32_config, bench_attention at the
+    flagship attention shape in fp32, and float64_errors there and at
+    [1, 4096, 8, 256]."""
+    import json
+    import subprocess
+    import types
+
+    import torch
+
+    calls = {}
+
+    def record(name):
+        def fn(*args, **kwargs):
+            calls[name] = (args, kwargs)
+            return name
+        return fn
+
+    for name in ("bench_train_step", "bench_attention", "profile_train_step",
+                 "float64_errors"):
+        monkeypatch.setattr(bench, name, record(name))
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(
+        stdout="NVIDIA H100 80GB HBM3, 700.00 W\n"))
+    bench.main(["--fp32"])
+    assert json.loads(capsys.readouterr().out) == {
+        "card": "NVIDIA H100 80GB HBM3, 700.00 W", "train_step": "bench_train_step",
+        "profile": "profile_train_step", "attention": "bench_attention",
+        "float64_errors": ["float64_errors", "float64_errors"]}
+    assert calls["float64_errors"][0] == (1, 4096, 8, 256)  # the last of the two
+    config, batch, seq = bench.flagship_fp32_config()
+    assert config.dtype == torch.float32
+    assert calls["bench_train_step"][0] == (config, 8, 2048)
+    assert calls["profile_train_step"][0] == (config, 8, 2048)
+    assert calls["bench_attention"] == ((8, 2048, 12, 128), {"dtype": torch.float32})
+
+
+def test_attention_work_counts_the_dtype():
+    """fp32 tensors are twice the bytes of bf16 ones (lse and delta stay
+    fp32), the FLOPs are the same, and fp32's bound rate is 3xTF32's: a
+    third of the TF32 peak."""
+    import torch
+
+    two = bench.attention_work(8, 2048, 12, 128, True)
+    four = bench.attention_work(8, 2048, 12, 128, True, torch.float32)
+    rows = 8 * 12 * 2048 * 4
+    for name in two:
+        assert four[name]["flops"] == two[name]["flops"]
+    assert two["flash_fwd"]["bytes"] == 4 * (8 * 2048 * 12 * 128 * 2) + rows
+    assert four["flash_fwd"]["bytes"] == 4 * (8 * 2048 * 12 * 128 * 4) + rows
+    h100 = "NVIDIA H100 80GB HBM3"
+    assert bench.peak_flops(h100, torch.float32) == 165e12
+    assert bench.peak_flops(h100, torch.float16) == bench.peak_flops(h100) == 989e12
+    assert bench.peak_flops("a card without a sheet", torch.float32) is None
+    # The fp32 forward's bound at the flagship shape: 0.625 ms at 165 TFLOP/s.
+    assert abs(four["flash_fwd"]["flops"] / 165e12 * 1e3 - 0.625) < 1e-3
+    assert set(bench.FLOP_RULES) == {torch.bfloat16, torch.float16, torch.float32}
+    with pytest.raises(RuntimeError, match="measures the card"):
+        bench.float64_errors(1, 64, 2, 64, device="cpu")

@@ -25,10 +25,9 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(shape, seed):
+def _inputs(shape, seed, dtype=torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
-            for _ in range(4)]
+    return [torch.randn(shape, generator=g, device="cuda", dtype=dtype) for _ in range(4)]
 
 
 # (1, 129, 2, 128): one row past a 128-row tile; (2, 384, 3, 128): whole
@@ -39,23 +38,32 @@ def _inputs(shape, seed):
 # 256 (64-key forward tiles, 32-key dq tiles, dk/dv split over D):
 # (1, 200, 2, 256) and (2, 333, 3, 256) ragged, (1, 64, 1, 256) one key
 # tile, (1, 640, 2, 256) five q tiles. (4097, 32, 16, 64): 65552 (batch,
-# head)s, more than a grid's y dimension holds.
+# head)s, more than a grid's y dimension holds. Each in bf16 and fp16 (the
+# wgmma kernels' two instantiations) and fp32 (the 3xTF32 kernels, whose
+# 64-, 32- and 16-row tiles the same lengths cut raggedly).
 @pytest.mark.parametrize("shape", [(2, 256, 4, 128), (1, 333, 2, 64), (1, 129, 2, 128),
                                    (2, 384, 3, 128), (1, 200, 2, 64), (1, 64, 1, 64),
                                    (2, 100, 3, 128), (1, 640, 2, 128), (4, 1000, 40, 64),
                                    (1, 200, 2, 256), (2, 333, 3, 256), (1, 64, 1, 256),
                                    (1, 640, 2, 256), (4097, 32, 16, 64)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_kernels_match_plain(card, shape, causal):
-    """Tolerances as in chip_smoke.py: out 1e-2 + 1e-2*|ref|, lse 1e-3,
-    gradients 2e-2*(rms of the ref row + |ref| + 1e-2*rms(ref)) elementwise
-    (bf16 rounding of p, ds and the outputs)."""
-    q, k, v, do = _inputs(shape, 0)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_kernels_match_plain(card, shape, causal, dtype):
+    """Tolerances as in chip_smoke.py: bf16 and fp16 out 1e-2 + 1e-2*|ref|,
+    lse 1e-3, gradients 2e-2*(rms of the ref row + |ref| + 1e-2*rms(ref))
+    elementwise (2-byte rounding of p, ds and the outputs); fp32 out and lse
+    within 2e-5, gradients within 2e-4, max abs (the JAX package's fp32
+    bars)."""
+    q, k, v, do = _inputs(shape, 0, dtype)
     b, s, h, _ = shape
+    fp32 = dtype == torch.float32
     out, lse = flash.flash_fwd(q, k, v, causal)
     ref_out, ref_lse = flash.flash_fwd_plain(q.float(), k.float(), v.float(), causal)
-    assert bool(((out.float() - ref_out).abs() <= 1e-2 + 1e-2 * ref_out.abs()).all())
-    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    if fp32:
+        assert (out - ref_out).abs().max().item() <= 2e-5
+    else:
+        assert bool(((out.float() - ref_out).abs() <= 1e-2 + 1e-2 * ref_out.abs()).all())
+    assert (lse - ref_lse).abs().max().item() <= (2e-5 if fp32 else 1e-3)
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
     got = (flash.flash_bwd_dq(q, k, v, do, lse, delta, causal),
            *flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal))
@@ -63,6 +71,10 @@ def test_kernels_match_plain(card, shape, causal):
     ref = (flash.flash_bwd_dq_plain(*f, lse, delta, causal),
            *flash.flash_bwd_dkv_plain(*f, lse, delta, causal))
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == dtype
+        if fp32:
+            assert (g - r).abs().max().item() <= 2e-4, name
+            continue
         row_rms = r.square().mean(-1, keepdim=True).sqrt()
         floor = 1e-2 * r.square().mean().sqrt()
         worst = ((g.float() - r).abs() / (row_rms + r.abs() + floor)).max().item()
@@ -72,10 +84,11 @@ def test_kernels_match_plain(card, shape, causal):
 @pytest.mark.parametrize("shape", [(2, 1000, 12, 128), (2, 1000, 4, 256)],
                          ids=["d128", "d256"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_dq_is_deterministic(card, shape, causal):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dq_is_deterministic(card, shape, causal, dtype):
     """dq uses no atomics: every entry is summed in one fixed order, so two
     launches on the same inputs agree bit for bit; a difference is a race."""
-    q, k, v, do = _inputs(shape, 2)
+    q, k, v, do = _inputs(shape, 2, dtype)
     b, s, h, _ = shape
     out, lse = flash.flash_fwd(q, k, v, causal)
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
@@ -88,9 +101,25 @@ def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros(1, 64, 2, 96, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash.flash_fwd(q, q, q)
-    q = torch.zeros(1, 64, 2, 64, device="cuda", dtype=torch.float32)
+    q = torch.zeros(1, 64, 2, 64, device="cuda", dtype=torch.float64)
     with pytest.raises(ValueError):
         flash.flash_fwd(q, q, q)
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.float32, "fp32"), (torch.float16, "fp16")])
+def test_auto_takes_the_kernel_of_the_dtype(card, dtype, kind):
+    """`auto` on fp32 (and fp16) inputs at head_dim 128 launches that
+    type's instantiation of each kernel once for a forward and backward,
+    and no other type's."""
+    from training_operator_tpu_torch.trainer import attention
+
+    q, k, v, _ = (x.requires_grad_() for x in _inputs((1, 256, 2, 128), 4, dtype))
+    flash.reset_launches()
+    attention.attention(q, k, v, causal=True, impl="auto").float().sum().backward()
+    one = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert flash.launches == one
+    assert flash.launches_dtype == {t: one if t == kind else dict.fromkeys(one, 0)
+                                    for t in ("bf16", "fp16", "fp32")}
 
 
 def _small_train(policy):
@@ -258,6 +287,28 @@ def test_loopback_ring_matches_plain(card, ns, causal):
         floor = 1e-2 * r.square().mean().sqrt()
         worst = ((g - r).abs() / (row_rms + r.abs() + floor)).max().item()
         assert worst <= 2e-2, (name, worst)
+
+
+def test_loopback_ring_fp32_matches_the_plain_ring(card):
+    """The loopback ring in fp32 through the fp32 kernels against the same
+    ring on the CPU, where each block takes the kernels' plain versions:
+    out and lse within 2e-5, the gradients within 2e-4 (phase 3's fp32
+    rules); 3 launches of each fp32 kernel and none of another type."""
+    from training_operator_tpu_torch.trainer import attention
+
+    ns = 2
+    q, k, v, do = _inputs((1, 512, 2, 64), 5, torch.float32)
+    blocks = [[c.contiguous() for c in x.chunk(ns, 1)] for x in (q, k, v, do)]
+    flash.reset_launches()
+    got = attention.ring_loopback(*blocks, True)
+    assert flash.launches_dtype["fp32"] == {"flash_fwd": 3, "flash_bwd_dq": 3,
+                                            "flash_bwd_dkv": 3}
+    assert sum(flash.launches.values()) == 9
+    want = attention.ring_loopback(*[[c.cpu() for c in x] for x in blocks], True)
+    for name, g, w, tol in zip(("out", "lse", "dq", "dk", "dv"), got, want,
+                               (2e-5, 2e-5, 2e-4, 2e-4, 2e-4)):
+        err = max((a.cpu() - b).abs().max().item() for a, b in zip(g, w))
+        assert err <= tol, (name, err)
 
 
 def test_moe_layer_on_the_card_matches_the_cpu(card):

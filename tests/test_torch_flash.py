@@ -63,26 +63,70 @@ def test_gradients_match_pallas(shape):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("shape", [(4097, 32, 16, 64), (1, 4096, 8, 256), (2, 1000, 4, 128),
                                    (1, 64, 65536, 64)])
-def test_what_auto_sends_the_kernels_they_take(shape):
+def test_what_auto_sends_the_kernels_they_take(shape, dtype):
     """`auto` sends a CUDA tensor to the kernels whenever `kernel_supports`
-    says they take it, so the wrappers' own checks must then pass: head_dim
-    256, and batch*heads above 65535 (4097 x 16 = 65552, 1 x 65536), which
-    the dk/dv launch once could not put in its grid. Meta tensors carry the
-    shapes without memory."""
-    q = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    says they take it, so the wrappers' own checks must then pass: bf16,
+    fp16 and fp32 at head_dim 64, 128 and 256, and batch*heads above 65535
+    (4097 x 16 = 65552, 1 x 65536), which the dk/dv launch once could not put
+    in its grid. Meta tensors carry the shapes without memory."""
+    q = torch.empty(shape, dtype=dtype, device="meta")
     assert pt_flash.kernel_supports(q)
     pt_flash._check_kernel_inputs(q, q, q, q)
 
 
 @pytest.mark.parametrize("head_dim,dtype", [(96, torch.bfloat16), (512, torch.bfloat16),
-                                            (64, torch.float32), (256, torch.float16)])
+                                            (64, torch.float64), (128, torch.float64)])
 def test_kernel_checks_refuse_what_the_kernels_do_not_take(head_dim, dtype):
     q = torch.empty((1, 64, 2, head_dim), dtype=dtype, device="meta")
     assert not pt_flash.kernel_supports(q)
     with pytest.raises(ValueError, match="the flash kernels take"):
         pt_flash._check_kernel_inputs(q, q, q)
+
+
+# fp16 against the JAX kernels in fp16 (interpret mode): both sides take the
+# same fp16 inputs and sum their products in fp32; the JAX kernel rounds p
+# (and ds in backward) to fp16 before the second product, the port's plain
+# versions keep them in fp32, and both round their outputs to fp16, each
+# rounding half an fp16 ulp (2^-11 relative). So out and the gradients may
+# differ by an ulp or two: within 2e-3 + 2e-3 |value| (an ulp is 2e-3 at
+# |value| 2 to 4; on the CPU the worst reads one ulp of out and under a
+# sixth of the bound on the gradients). lse never passes through fp16.
+FP16_ATOL, FP16_RTOL = 2e-3, 2e-3
+
+
+@pytest.mark.parametrize("shape,causal", [((1, 256, 2, 64), True), ((1, 256, 2, 64), False),
+                                          ((1, 200, 2, 128), True)])
+def test_fp16_forward_matches_pallas(shape, causal):
+    q, k, v = (x.astype(np.float16) for x in _inputs(5, shape))
+    exp_out, exp_lse = jax_flash.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, 128, 128, True
+    )
+    got_out, got_lse = pt_flash.flash_attention_with_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal
+    )
+    assert got_out.dtype == torch.float16 and np.asarray(exp_out).dtype == np.float16
+    np.testing.assert_allclose(got_out.float().numpy(), np.asarray(exp_out, np.float32),
+                               atol=FP16_ATOL, rtol=FP16_RTOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(exp_lse)[:, :shape[1]], atol=2e-5)
+
+
+def test_fp16_gradients_match_pallas():
+    shape = (1, 128, 2, 64)
+    q, k, v = (x.astype(np.float16) for x in _inputs(6, shape))
+    exp = jax.grad(
+        lambda a, b, c: (jax_flash.flash_attention(a, b, c, True, 128, 128, True)
+                         .astype(jnp.float32) ** 2).sum(),
+        argnums=(0, 1, 2),
+    )(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (pt_flash.flash_attention(tq, tk, tv, True).float() ** 2).sum().backward()
+    for got, want, name in zip((tq.grad, tk.grad, tv.grad), exp, ("dq", "dk", "dv")):
+        assert got.dtype == torch.float16
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   atol=FP16_ATOL, rtol=FP16_RTOL, err_msg=name)
 
 
 def test_lse_carries_no_gradient():

@@ -50,10 +50,13 @@ def test_tag_ignores_unlisted_files(csrc_copy):
     assert kernels._tag() == before
 
 
-# What a source of each design must contain: its Hopper helpers, TMA loads,
-# wgmma products and the consumers' register hand-over.
+# What a source of each design must contain: for wgmma+tma its Hopper
+# helpers, TMA loads, wgmma products and the consumers' register hand-over;
+# for mma.sync-3xtf32 the fp32 helpers, the 3xTF32 product and cp.async
+# tile copies.
 DESIGN_REQUIRES = {
     "wgmma+tma": ('#include "sm90_common.cuh"', "tma_load_4d", "wgmma_", "reg_alloc"),
+    "mma.sync-3xtf32": ('#include "flash_fp32.cuh"', "mma3(", "load_rows_f32", "cp_wait"),
 }
 
 
@@ -63,9 +66,27 @@ def test_each_source_names_its_design(src):
     text = (kernels.CSRC / src).read_text()
     for token in DESIGN_REQUIRES[design]:
         assert token in text, (src, design, token)
-    # No source falls back to the pre-Hopper instructions.
-    assert "mma.sync" not in text and "ldmatrix" not in text and "cp.async." not in text
+    if design == "wgmma+tma":
+        # The wgmma kernels fall back on no pre-Hopper instruction.
+        assert "mma.sync" not in text and "ldmatrix" not in text and "cp.async." not in text
+        # Each is instantiated for bf16 and fp16, with a C entry point each.
+        assert "<flash::bf16>" in text and "<flash::f16>" in text
+        assert "_bf16(" in text and "_fp16(" in text
+    else:
+        # The fp32 kernels run no product outside the 3xTF32 split.
+        assert "wgmma" not in text and "mma_tf32(" not in text and "_fp32(" in text
     assert set(kernels.DESIGN) == set(kernels.SOURCES)
+    assert set(kernels.DESIGN.values()) == set(kernels.DESIGN_SASS)
+
+
+def test_every_entry_point_has_a_library():
+    """Each kernel has a C entry point per type, in the wgmma source for
+    bf16 and fp16 and in its fp32 source for fp32."""
+    for name, src in kernels._LIB_OF.items():
+        assert src in kernels.SOURCES and f'extern "C" int {name}(' in (
+            kernels.CSRC / src).read_text(), name
+    assert set(kernels._LIB_OF) == set(kernels._SIGNATURES)
+    assert len(kernels._SIGNATURES) == 3 * len(kernels.TYPES)
 
 
 def test_sass_counts_reads_cuobjdump(monkeypatch, tmp_path):
@@ -74,6 +95,8 @@ def test_sass_counts_reads_cuobjdump(monkeypatch, tmp_path):
                 "  /*0110*/  UTMALDG.4D [UR8], [UR10] ;\n"
                 "  /*0120*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR6], R24 ;\n",
         "b.so": "  /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n",
+        "c.so": "  /*0100*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n"
+                "  /*0110*/  HMMA.1688.F32.TF32 R4, R16, R12, R4 ;\n",
     }
     monkeypatch.setattr(kernels, "nvcc_path", lambda: str(tmp_path / "bin" / "nvcc"))
 
@@ -82,9 +105,10 @@ def test_sass_counts_reads_cuobjdump(monkeypatch, tmp_path):
         return subprocess.CompletedProcess(cmd, 0, stdout=sass[cmd[2]], stderr="")
 
     monkeypatch.setattr(kernels.subprocess, "run", fake_run)
-    counts = kernels.sass_counts({"fwd.cu": "a.so", "dq.cu": "b.so"})
-    assert counts == {"fwd.cu": {"HGMMA": 2, "UTMALDG": 1},
-                      "dq.cu": {"HGMMA": 0, "UTMALDG": 0}}
+    counts = kernels.sass_counts({"fwd.cu": "a.so", "dq.cu": "b.so", "fp32.cu": "c.so"})
+    assert counts == {"fwd.cu": {"HGMMA": 2, "UTMALDG": 1, "HMMA.TF32": 0},
+                      "dq.cu": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 0},
+                      "fp32.cu": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 2}}
 
 
 def test_kernel_sass_counts_splits_by_function(monkeypatch, tmp_path):
@@ -100,6 +124,21 @@ def test_kernel_sass_counts_splits_by_function(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "nvcc_path", lambda: str(tmp_path / "bin" / "nvcc"))
     monkeypatch.setattr(kernels.subprocess, "run", lambda cmd, **kwargs:
                         subprocess.CompletedProcess(cmd, 0, stdout=sass, stderr=""))
-    assert kernels.kernel_sass_counts({"fwd.cu": "a.so"}) == {"fwd.cu": {
-        "_ZN5flash10fwd_kernelILi256ELb1EEEv": {"HGMMA": 1, "UTMALDG": 2},
-        "_ZN5flash10fwd_kernelILi64ELb1EEEv": {"HGMMA": 0, "UTMALDG": 0}}}
+    per_kernel = kernels.kernel_sass_counts({"flash_fwd.cu": "a.so"})
+    assert per_kernel == {"flash_fwd.cu": {
+        "_ZN5flash10fwd_kernelILi256ELb1EEEv": {"HGMMA": 1, "UTMALDG": 2, "HMMA.TF32": 0},
+        "_ZN5flash10fwd_kernelILi64ELb1EEEv": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 0}}}
+    # The instantiation of another form fails its source's design.
+    assert kernels.missing_sass(per_kernel) == {
+        "flash_fwd.cu": ["_ZN5flash10fwd_kernelILi64ELb1EEEv"]}
+
+
+def test_missing_sass_holds_each_design_to_its_instructions():
+    tf32 = {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 24}
+    wgmma = {"HGMMA": 8, "UTMALDG": 4, "HMMA.TF32": 0}
+    assert kernels.missing_sass({"flash_fwd_fp32.cu": {"_ZN5flash14fwd_f32_kernelILi64E": tf32},
+                                 "flash_fwd.cu": {"_ZN5flash10fwd_kernelI6__half": wgmma}}) == {}
+    # A wgmma kernel in an fp32 source, or a source without kernels, fails.
+    assert kernels.missing_sass({"flash_fwd_fp32.cu": {"_ZN5flash14fwd_f32_kernelI": wgmma},
+                                 "flash_fwd.cu": {}}) == {
+        "flash_fwd_fp32.cu": ["_ZN5flash14fwd_f32_kernelI"], "flash_fwd.cu": ["no kernel"]}

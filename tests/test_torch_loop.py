@@ -165,7 +165,7 @@ def test_export_providers(tmp_path):
     (src / "a.bin").write_bytes(b"xyz")
     assert export.upload(str(src), str(tmp_path / "plain")) == str(tmp_path / "plain")
     assert (tmp_path / "plain" / "a.bin").read_bytes() == b"xyz"
-    for uri in ("hf://org/model", "s3://bucket/prefix"):
+    for uri in ("gs://bucket/prefix", "ftp://host/path"):
         with pytest.raises(ValueError, match=repr(uri.split(":")[0])):
             export.upload(str(src), uri)
 

@@ -252,3 +252,26 @@ def test_unknown_remat_policy_rejected():
         pt_model.init_params(pcfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="remat_policy"):
         pt_model.layer_body(pcfg, torch.zeros(1, 1))
+
+
+def test_flagship_fp32_config_counts_the_flagships_parameters():
+    """chip_smoke.py phase 14's model, bench.flagship_fp32_config: the
+    flagship with dtype float32 and every other field, the batch and the
+    sequence the flagship's; the same parameters on the port's meta model
+    and in jax.eval_shape of the JAX init with the same fields and
+    dtype=jnp.float32."""
+    from training_operator_tpu_torch.trainer import bench
+
+    config, batch, seq = bench.flagship_fp32_config()
+    flagship, batch_bf16, seq_bf16 = bench.flagship_config()
+    assert config.dtype == torch.float32 and flagship.dtype == torch.bfloat16
+    assert dataclasses.replace(config, dtype=torch.bfloat16) == flagship
+    assert (batch, seq) == (batch_bf16, seq_bf16) == (8, 2048)
+    total = bench._count_params(pt_model.Transformer(config, "meta"))[0]
+    assert total == bench._count_params(pt_model.Transformer(flagship, "meta"))[0]
+    fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(config)
+              if f.name != "dtype"}
+    jcfg = jax_model.TransformerConfig(**fields, dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda key: jax_model.init_params(jcfg, key),
+                            jax.random.PRNGKey(0))
+    assert sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes)) == total

@@ -13,6 +13,7 @@ no card raises.
 from __future__ import annotations
 
 import dataclasses
+import re
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -25,6 +26,16 @@ from training_operator_tpu_torch.trainer.model import TransformerConfig, resolve
 # sheets: 989 TFLOP/s bf16 dense; 3.35 and 4.8 TB/s.
 PEAK_BF16_FLOPS = {"H100": 989e12, "H200": 989e12}
 PEAK_BYTES_PER_S = {"H100": 3.35e12, "H200": 4.8e12}
+# Dense TF32 FLOP/s (the same data sheets): the fp32 kernels' products run
+# as 3xTF32, three TF32 products each, so their fastest fp32-class rate is
+# a third of it (FLOP_RULES).
+PEAK_TF32_FLOPS = {"H100": 495e12, "H200": 495e12}
+# The rate each input dtype's attention products are bounded by.
+FLOP_RULES = {
+    torch.bfloat16: "bf16 tensor cores, 989 TFLOP/s",
+    torch.float16: "fp16 tensor cores, 989 TFLOP/s",
+    torch.float32: "3xTF32, 495 / 3 = 165 TFLOP/s",
+}
 
 
 def _peak(table: Dict[str, float], device_name: str):
@@ -32,6 +43,15 @@ def _peak(table: Dict[str, float], device_name: str):
         if key in device_name:
             return value
     return None
+
+
+def peak_flops(device_name: str, dtype: torch.dtype = torch.bfloat16):
+    """The peak FLOP/s of the attention products on `dtype` inputs under
+    FLOP_RULES, or None for a card without published rates."""
+    if dtype == torch.float32:
+        tf32 = _peak(PEAK_TF32_FLOPS, device_name)
+        return None if tf32 is None else tf32 / 3
+    return _peak(PEAK_BF16_FLOPS, device_name)
 
 
 def flagship_config() -> Tuple[TransformerConfig, int, int]:
@@ -57,6 +77,16 @@ def flagship_config() -> Tuple[TransformerConfig, int, int]:
         8,
         2048,
     )
+
+
+def flagship_fp32_config() -> Tuple[TransformerConfig, int, int]:
+    """(config, batch, seq) of chip_smoke.py phase 14: the flagship in full
+    precision (`dtype=float32`), the run a team makes to check a bf16 run's
+    loss, and the dtype the CPU parity tests hold the two packages in. Same
+    widths, policy and batch as `flagship_config`, nothing cut; the fp32
+    flash kernels run its attention."""
+    config, batch, seq = flagship_config()
+    return dataclasses.replace(config, dtype=torch.float32), batch, seq
 
 
 def moe_config() -> Tuple[TransformerConfig, int, int]:
@@ -295,7 +325,7 @@ def _phase_breakdown(config: TransformerConfig, model, data, step_ms: float,
 
 
 def _kernel_family(name: str) -> str:
-    if "fwd_kernel" in name or "bwd_dq_kernel" in name or "bwd_dkv_kernel" in name:
+    if re.search(r"(fwd|bwd_dq|bwd_dkv)(_f32)?_kernel", name):
         return "flash (this port)"
     lowered = name.lower()
     if any(s in lowered for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
@@ -458,14 +488,15 @@ def profile_mesh_step(config: TransformerConfig, batch: int, seq: int) -> Dict[s
     return out
 
 
-def attention_work(batch: int, seq: int, heads: int, head_dim: int, causal: bool
-                   ) -> Dict[str, Dict[str, float]]:
+def attention_work(batch: int, seq: int, heads: int, head_dim: int, causal: bool,
+                   dtype: torch.dtype = torch.bfloat16) -> Dict[str, Dict[str, float]]:
     """FLOPs and bytes each flash kernel must do on these shapes: the (q, k)
     pairs the mask keeps, 2*D FLOP per pair per product; each input read once
-    and each output written once (bf16 tensors, fp32 lse/delta)."""
+    and each output written once (tensors of `dtype`, fp32 lse/delta). The
+    FLOPs run at the rate FLOP_RULES names for `dtype`."""
     bh = batch * heads
     pairs = bh * (seq * (seq + 1) // 2 if causal else seq * seq)
-    tensor = bh * seq * head_dim * 2
+    tensor = bh * seq * head_dim * torch.empty((), dtype=dtype).element_size()
     rows = bh * seq * 4
     return {
         "flash_fwd": {"flops": 2 * 2 * head_dim * pairs, "bytes": 4 * tensor + rows},
@@ -476,10 +507,12 @@ def attention_work(batch: int, seq: int, heads: int, head_dim: int, causal: bool
 
 def bench_attention(batch: int = 8, seq: int = 2048, heads: int = 12,
                     head_dim: int = 128, causal: bool = True, iters: int = 10,
-                    device=None) -> Dict[str, Dict[str, Any]]:
-    """Each flash kernel against its plain version on bf16 [B, S, H, D]
-    inputs, with its bound on this card. `library_ms` times one PyTorch call
-    computing the same function (scaled_dot_product_attention for the
+                    device=None, dtype: torch.dtype = torch.bfloat16
+                    ) -> Dict[str, Dict[str, Any]]:
+    """Each flash kernel against its plain version on [B, S, H, D] inputs of
+    `dtype`, with its bound on this card (at the rate `bound_rule` names,
+    FLOP_RULES). `library_ms` times one PyTorch call computing the same
+    function on the same inputs (scaled_dot_product_attention for the
     forward; none computes dq alone or dk/dv alone, so those are None and
     `library_bwd_ms` times SDPA's whole backward instead). The row
     `flash_bwd` is the backward pair, dq then dk/dv, beside SDPA's whole
@@ -492,7 +525,7 @@ def bench_attention(batch: int = 8, seq: int = 2048, heads: int = 12,
         raise RuntimeError("bench_attention measures the card; no CUDA device given")
     g = torch.Generator(device=device).manual_seed(0)
     shape = (batch, seq, heads, head_dim)
-    q, k, v, do = (torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16)
+    q, k, v, do = (torch.randn(shape, generator=g, device=device, dtype=dtype)
                    for _ in range(4))
     out, lse = flash.flash_fwd(q, k, v, causal)
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(batch * heads, seq)
@@ -520,21 +553,22 @@ def bench_attention(batch: int = 8, seq: int = 2048, heads: int = 12,
                           None),
     }
     name = torch.cuda.get_device_name(device)
-    peak_flops = _peak(PEAK_BF16_FLOPS, name)
+    peak = peak_flops(name, dtype)
     peak_bytes = _peak(PEAK_BYTES_PER_S, name)
-    if peak_flops is None or peak_bytes is None:
+    if peak is None or peak_bytes is None:
         raise ValueError(f"no published peak rates for {name!r}: bounds need them")
     dq, dkv = runs["flash_bwd_dq"], runs["flash_bwd_dkv"]
     runs["flash_bwd"] = (lambda: (dq[0](), dkv[0]()), lambda: (dq[1](), dkv[1]()), sdpa_bwd)
-    work = attention_work(batch, seq, heads, head_dim, causal)
+    work = attention_work(batch, seq, heads, head_dim, causal, dtype)
     work["flash_bwd"] = {key: work["flash_bwd_dq"][key] + work["flash_bwd_dkv"][key]
                          for key in ("flops", "bytes")}
     result = {}
     for kname, (kernel, plain, library) in runs.items():
-        t_ops = work[kname]["flops"] / peak_flops * 1e3
+        t_ops = work[kname]["flops"] / peak * 1e3
         t_bytes = work[kname]["bytes"] / peak_bytes * 1e3
         result[kname] = {
             "shape": list(shape),
+            "dtype": str(dtype).removeprefix("torch."),
             "causal": causal,
             "ms": cuda_time_ms(kernel, iters=iters),
             "plain_ms": cuda_time_ms(plain, iters=max(2, iters // 4), warmup=1),
@@ -542,6 +576,7 @@ def bench_attention(batch: int = 8, seq: int = 2048, heads: int = 12,
             "library_bwd_ms": None,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_rule": FLOP_RULES[dtype],
             "flops": work[kname]["flops"],
             "bytes": work[kname]["bytes"],
         }
@@ -550,6 +585,50 @@ def bench_attention(batch: int = 8, seq: int = 2048, heads: int = 12,
     for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
         result[kname]["library_bwd_ms"] = result["flash_bwd"]["library_ms"]
     return result
+
+
+def float64_errors(batch: int = 8, seq: int = 2048, heads: int = 12, head_dim: int = 128,
+                   causal: bool = True, dtype: torch.dtype = torch.float32,
+                   device=None) -> Dict[str, Dict[str, float]]:
+    """Max abs error of each kernel output (out; dq, dk, dv given the
+    kernel's own lse and delta) and of its plain version against the same
+    function in float64 on the same inputs, beside the output's largest
+    magnitude: how far each is from the exact result, where the kernel's
+    gap to its plain version alone cannot say which of the two is off."""
+    from training_operator_tpu_torch.trainer import flash
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("float64_errors measures the card; no CUDA device given")
+    g = torch.Generator(device=device).manual_seed(0)
+    shape = (batch, seq, heads, head_dim)
+    q, k, v, do = (torch.randn(shape, generator=g, device=device, dtype=dtype)
+                   for _ in range(4))
+    out, lse = flash.flash_fwd(q, k, v, causal)
+    delta = flash.row_delta(do, out)
+    got = {"out": out, "dq": flash.flash_bwd_dq(q, k, v, do, lse, delta, causal)}
+    got["dk"], got["dv"] = flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    plain = {"out": flash.flash_fwd_plain(q, k, v, causal)[0],
+             "dq": flash.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)}
+    plain["dk"], plain["dv"] = flash.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    # The plain versions' arithmetic in float64 ([B, H, S, S] scores).
+    qd, kd, vd, dod = (x.double() for x in (q, k, v, do))
+    sc = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * head_dim ** -0.5
+    if causal:
+        keep = torch.ones(seq, seq, dtype=torch.bool, device=device).tril()
+        sc = sc.masked_fill(~keep, -1e30)
+    p = torch.softmax(sc, dim=-1)
+    ref = {"out": torch.einsum("bhqk,bkhd->bqhd", p, vd)}
+    p = torch.exp(sc - lse.double().reshape(batch, heads, seq, 1))
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+              - delta.double().reshape(batch, heads, seq, 1))
+    ref["dq"] = torch.einsum("bhqk,bkhd->bqhd", ds, kd) * head_dim ** -0.5
+    ref["dk"] = torch.einsum("bhqk,bqhd->bkhd", ds, qd) * head_dim ** -0.5
+    ref["dv"] = torch.einsum("bhqk,bqhd->bkhd", p, dod)
+    return {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."), **{
+        n: {"kernel": (got[n].double() - r).abs().max().item(),
+            "plain": (plain[n].double() - r).abs().max().item(),
+            "max_abs": r.abs().max().item()} for n, r in ref.items()}}
 
 
 # (batch, seq, heads, head_dim, causal) of `attention_sweep`: the flagship
@@ -782,7 +861,10 @@ def main(argv=None) -> None:
     the step's MFU on active parameters (FLOPS_RULE); with `--d256`,
     `bench_train_step` with its phase breakdown on phase 13's Gemma-2B-width
     configuration (`gemma2b_config`), its profile (`profile_train_step`) and
-    `bench_attention` at its attention shape [1, 4096, 8, 256]."""
+    `bench_attention` at its attention shape [1, 4096, 8, 256]; with
+    `--fp32`, the same three on phase 14's full-precision flagship
+    (`flagship_fp32_config`), the kernels in fp32, and `float64_errors`
+    at the flagship attention shape and at [1, 4096, 8, 256]."""
     import argparse
     import json
     import subprocess
@@ -804,18 +886,25 @@ def main(argv=None) -> None:
                         help="profile the flagship step as 2 loopback pipeline stages")
     parser.add_argument("--d256", action="store_true",
                         help="the Gemma-2B-width step (head_dim 256) and its kernels")
+    parser.add_argument("--fp32", action="store_true",
+                        help="the flagship step in fp32 and the fp32 kernels")
     args = parser.parse_args(argv)
     config, batch, seq = flagship_config()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    if args.d256:
-        config, batch, seq = gemma2b_config()
+    if args.d256 or args.fp32:
+        config, batch, seq = gemma2b_config() if args.d256 else flagship_fp32_config()
         out = {"card": card,
                "train_step": bench_train_step(config, batch, seq, steps=5, warmup=1),
                "profile": profile_train_step(config, batch, seq),
-               "attention": bench_attention(batch, seq, config.n_heads, config.head_dim)}
+               "attention": bench_attention(batch, seq, config.n_heads, config.head_dim,
+                                            dtype=config.dtype)}
+        if args.fp32:
+            out["float64_errors"] = [float64_errors(*shape) for shape in
+                                     ((batch, seq, config.n_heads, config.head_dim),
+                                      (1, 4096, 8, 256))]
     elif args.moe or args.pipeline:
         stages = 0
         if args.moe:

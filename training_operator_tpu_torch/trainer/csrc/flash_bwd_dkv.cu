@@ -57,12 +57,12 @@ struct DkvLayout {
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
 };
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(384, 1)
 bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, float scale,
+               T* __restrict__ dk, T* __restrict__ dv, int S, int H, float scale,
                float scale_log2) {
   using L = DkvLayout<D>;
   constexpr int BK = L::BK, BQ = L::BQ, STAGES = L::STAGES;
@@ -167,13 +167,13 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t col = (kk & 3) * 32;  // bytes into the box's 128-byte rows
-        wgmma_ss_n64(st, smem_desc(k_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024),
+        wgmma_ss_n64<T>(st, smem_desc(k_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024),
                      smem_desc(q_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t col = (kk & 3) * 32;
-        wgmma_ss_n64(dpt, smem_desc(v_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024),
+        wgmma_ss_n64<T>(dpt, smem_desc(v_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024),
                      smem_desc(do_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024), kk > 0);
       }
       wgmma_commit();
@@ -199,8 +199,8 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc) {
-        c_to_a(pa[kc], &st[8 * kc], &st[8 * kc + 4]);
-        c_to_a(da[kc], &dpt[8 * kc], &dpt[8 * kc + 4]);
+        c_to_a<T>(pa[kc], &st[8 * kc], &st[8 * kc + 4]);
+        c_to_a<T>(da[kc], &dpt[8 * kc], &dpt[8 * kc + 4]);
       }
 
       fence_regs(dv_acc);
@@ -208,11 +208,11 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc)  // 16 q rows = two 8-row groups
-        wgmma_rs_mn<DW>(dv_acc, pa[kc],
+        wgmma_rs_mn<T, DW>(dv_acc, pa[kc],
                         smem_desc(do_addr + half + kc * 2048, L::Q_BOX, 1024));
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc)
-        wgmma_rs_mn<DW>(dk_acc, da[kc], smem_desc(q_addr + half + kc * 2048, L::Q_BOX, 1024));
+        wgmma_rs_mn<T, DW>(dk_acc, da[kc], smem_desc(q_addr + half + kc * 2048, L::Q_BOX, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -225,9 +225,9 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 #pragma unroll
       for (int i = 0; i < DW / 8; ++i) {
         *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
-            pack_bf16(dk_acc[4 * i] * scale, dk_acc[4 * i + 1] * scale);
+            pack2<T>(dk_acc[4 * i] * scale, dk_acc[4 * i + 1] * scale);
         *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
-            pack_bf16(dv_acc[4 * i], dv_acc[4 * i + 1]);
+            pack2<T>(dv_acc[4 * i], dv_acc[4 * i + 1]);
       }
     }
     if (key_hi < S) {
@@ -235,51 +235,66 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 #pragma unroll
       for (int i = 0; i < DW / 8; ++i) {
         *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
-            pack_bf16(dk_acc[4 * i + 2] * scale, dk_acc[4 * i + 3] * scale);
+            pack2<T>(dk_acc[4 * i + 2] * scale, dk_acc[4 * i + 3] * scale);
         *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
-            pack_bf16(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+            pack2<T>(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
       }
     }
   }
 }
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int B, int S,
                     int H, float scale, cudaStream_t stream) {
   using L = DkvLayout<D>;
   static_assert(L::SMEM <= 232448, "more shared memory than a block may have");
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_bshd(&tq, q, B, S, H, D, L::BQ);
-  if (err == cudaSuccess) err = encode_bshd(&tdo, dout, B, S, H, D, L::BQ);
-  if (err == cudaSuccess) err = encode_bshd(&tk, k, B, S, H, D, L::BK);
-  if (err == cudaSuccess) err = encode_bshd(&tv, v, B, S, H, D, L::BK);
+  cudaError_t err = encode_bshd<T>(&tq, q, B, S, H, D, L::BQ);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tdo, dout, B, S, H, D, L::BQ);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, S, H, D, L::BK);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, S, H, D, L::BK);
   if (err != cudaSuccess) return err;
   const long blocks = (long)((S + L::BK - 1) / L::BK) * B * H;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
-  return launch(bwd_dkv_kernel<D, CAUSAL>, dim3((unsigned)blocks), dim3(384), L::SMEM, stream,
+  return launch(bwd_dkv_kernel<T, D, CAUSAL>, dim3((unsigned)blocks), dim3(384), L::SMEM, stream,
                 tq, tk, tv, tdo,
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, scale,
+                static_cast<T*>(dk), static_cast<T*>(dv), S, H, scale,
                 scale * kLog2e);
+}
+
+template <typename T>
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dk, void* dv, int B, int S, int H, int D, int causal,
+              float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return causal ? run_dkv<T, 64, true>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st)
+                  : run_dkv<T, 64, false>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st);
+  if (D == 128)
+    return causal ? run_dkv<T, 128, true>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st)
+                  : run_dkv<T, 128, false>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st);
+  if (D == 256)
+    return causal ? run_dkv<T, 256, true>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st)
+                  : run_dkv<T, 256, false>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace flash
 
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse,
-                                  const void* delta, void* dk, void* dv, int B,
-                                  int S, int H, int D, int causal, float scale,
-                                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return causal ? flash::run_dkv<64, true>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st)
-                  : flash::run_dkv<64, false>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st);
-  if (D == 128)
-    return causal ? flash::run_dkv<128, true>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st)
-                  : flash::run_dkv<128, false>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st);
-  if (D == 256)
-    return causal ? flash::run_dkv<256, true>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st)
-                  : flash::run_dkv<256, false>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, st);
-  return (int)cudaErrorInvalidValue;
+                                  const void* dout, const void* lse, const void* delta,
+                                  void* dk, void* dv, int B, int S, int H, int D, int causal,
+                                  float scale, void* stream) {
+  return flash::dkv_entry<flash::bf16>(q, k, v, dout, lse, delta, dk, dv, B, S, H, D, causal,
+                                       scale, stream);
+}
+
+extern "C" int flash_bwd_dkv_fp16(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, const void* delta,
+                                  void* dk, void* dv, int B, int S, int H, int D, int causal,
+                                  float scale, void* stream) {
+  return flash::dkv_entry<flash::f16>(q, k, v, dout, lse, delta, dk, dv, B, S, H, D, causal,
+                                      scale, stream);
 }

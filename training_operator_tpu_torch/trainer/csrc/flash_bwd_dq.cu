@@ -55,12 +55,12 @@ struct DqLayout {
   static constexpr int SMEM = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;  // + alignment slack
 };
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(384, 1)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int S, int H, int BH, float scale, float scale_log2) {
+              T* __restrict__ dq, int S, int H, int BH, float scale, float scale_log2) {
   using L = DqLayout<D>;
   constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -145,7 +145,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t col = (kk & 3) * 32;  // bytes into the box's 128-byte rows
-        wgmma_ss<BK>(d, smem_desc(a_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024),
+        wgmma_ss<T, BK>(d, smem_desc(a_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024),
                      smem_desc(b_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024), kk > 0);
       }
       wgmma_commit();
@@ -161,7 +161,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BK / 16; ++kc)  // 16 keys = two 8-row groups of K
-        wgmma_rs_mn<D>(acc, da[kc], smem_desc(k_addr + kc * 2048, L::KV_BOX, 1024));
+        wgmma_rs_mn<T, D>(acc, da[kc], smem_desc(k_addr + kc * 2048, L::KV_BOX, 1024));
       wgmma_commit();
       fence_regs(acc);
     };
@@ -214,7 +214,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       };
       auto pack_ds = [&]() {
 #pragma unroll
-        for (int kc = 0; kc < BK / 16; ++kc) c_to_a(da[kc], &sc[8 * kc], &sc[8 * kc + 4]);
+        for (int kc = 0; kc < BK / 16; ++kc) c_to_a<T>(da[kc], &sc[8 * kc], &sc[8 * kc + 4]);
       };
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
@@ -257,59 +257,74 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       mbar_arrive(&k_empty[(it - 1) % STAGES]);
 
       if (row_lo < S) {
-        bf16* out = dq + (((long)b * S + row_lo) * H + h) * D + 2 * t;
+        T* out = dq + (((long)b * S + row_lo) * H + h) * D + 2 * t;
 #pragma unroll
         for (int i = 0; i < D / 8; ++i)
           *reinterpret_cast<uint32_t*>(out + 8 * i) =
-              pack_bf16(acc[4 * i] * scale, acc[4 * i + 1] * scale);
+              pack2<T>(acc[4 * i] * scale, acc[4 * i + 1] * scale);
       }
       if (row_hi < S) {
-        bf16* out = dq + (((long)b * S + row_hi) * H + h) * D + 2 * t;
+        T* out = dq + (((long)b * S + row_hi) * H + h) * D + 2 * t;
 #pragma unroll
         for (int i = 0; i < D / 8; ++i)
           *reinterpret_cast<uint32_t*>(out + 8 * i) =
-              pack_bf16(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale);
+              pack2<T>(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale);
       }
     }
   }
 }
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dq, int B, int S,
                    int H, float scale, cudaStream_t stream) {
   using L = DqLayout<D>;
   static_assert(L::SMEM <= 232448, "more shared memory than a block may have");
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_bshd(&tq, q, B, S, H, D, L::BQ);
-  if (err == cudaSuccess) err = encode_bshd(&tdo, dout, B, S, H, D, L::BQ);
-  if (err == cudaSuccess) err = encode_bshd(&tk, k, B, S, H, D, L::BK);
-  if (err == cudaSuccess) err = encode_bshd(&tv, v, B, S, H, D, L::BK);
+  cudaError_t err = encode_bshd<T>(&tq, q, B, S, H, D, L::BQ);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tdo, dout, B, S, H, D, L::BQ);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, S, H, D, L::BK);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, S, H, D, L::BK);
   if (err != cudaSuccess) return err;
   dim3 grid;
   err = persistent_grid((S + L::BQ - 1) / L::BQ, B * H, &grid);
   if (err != cudaSuccess) return err;
-  return launch(bwd_dq_kernel<D, CAUSAL>, grid, dim3(384), L::SMEM, stream, tq, tk, tv, tdo,
+  return launch(bwd_dq_kernel<T, D, CAUSAL>, grid, dim3(384), L::SMEM, stream, tq, tk, tv, tdo,
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<bf16*>(dq), S, H, B * H, scale, scale * kLog2e);
+                static_cast<T*>(dq), S, H, B * H, scale, scale * kLog2e);
+}
+
+template <typename T>
+int dq_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* delta, void* dq, int B, int S, int H, int D, int causal,
+             float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return causal ? run_dq<T, 64, true>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st)
+                  : run_dq<T, 64, false>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st);
+  if (D == 128)
+    return causal ? run_dq<T, 128, true>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st)
+                  : run_dq<T, 128, false>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st);
+  if (D == 256)
+    return causal ? run_dq<T, 256, true>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st)
+                  : run_dq<T, 256, false>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace flash
 
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dq, int B, int S,
-                                 int H, int D, int causal, float scale,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return causal ? flash::run_dq<64, true>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st)
-                  : flash::run_dq<64, false>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st);
-  if (D == 128)
-    return causal ? flash::run_dq<128, true>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st)
-                  : flash::run_dq<128, false>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st);
-  if (D == 256)
-    return causal ? flash::run_dq<256, true>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st)
-                  : flash::run_dq<256, false>(q, k, v, dout, lse, delta, dq, B, S, H, scale, st);
-  return (int)cudaErrorInvalidValue;
+                                 const void* dout, const void* lse, const void* delta,
+                                 void* dq, int B, int S, int H, int D, int causal,
+                                 float scale, void* stream) {
+  return flash::dq_entry<flash::bf16>(q, k, v, dout, lse, delta, dq, B, S, H, D, causal,
+                                      scale, stream);
+}
+
+extern "C" int flash_bwd_dq_fp16(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse, const void* delta,
+                                 void* dq, int B, int S, int H, int D, int causal,
+                                 float scale, void* stream) {
+  return flash::dq_entry<flash::f16>(q, k, v, dout, lse, delta, dq, B, S, H, D, causal,
+                                     scale, stream);
 }

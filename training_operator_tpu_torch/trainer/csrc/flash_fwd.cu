@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 softmax.
+// Flash-attention forward for Hopper (sm_90a), bf16 or fp16 in (T), fp32
+// softmax.
 //
 // Replaces: training_operator_tpu/trainer/flash.py, _flash_fwd_kernel
 // (launched by _flash_fwd_folded). Same function: out = softmax(q kᵀ * d^-0.5
@@ -103,10 +104,10 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], bool edge, i
   m_hi = mx_hi;
 }
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(384, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+           const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
            float* __restrict__ lse, int S, int H, int BH, float scale_log2) {
   using L = FwdLayout<D>;
   constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
@@ -191,7 +192,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t col = (kk & 3) * 32;  // bytes into the box's 128-byte rows
-        wgmma_ss<BK>(sc, smem_desc(q_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024),
+        wgmma_ss<T, BK>(sc, smem_desc(q_addr + (kk >> 2) * L::Q_BOX + col, 16, 1024),
                      smem_desc(k_addr + (kk >> 2) * L::KV_BOX + col, 16, 1024), kk > 0);
       }
       wgmma_commit();
@@ -204,7 +205,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BK / 16; ++kc)  // 16 keys = two 8-row groups of V
-        wgmma_rs_mn<D>(acc, pa[kc], smem_desc(v_addr + kc * 2048, L::KV_BOX, 1024));
+        wgmma_rs_mn<T, D>(acc, pa[kc], smem_desc(v_addr + kc * 2048, L::KV_BOX, 1024));
       wgmma_commit();
       fence_regs(acc);
     };
@@ -260,7 +261,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
         if (ntiles == 1) mbar_arrive(q_empty);
         softmax(sc, 0);
 #pragma unroll
-        for (int kc = 0; kc < BK / 16; ++kc) c_to_a(pa[kc], &sc[8 * kc], &sc[8 * kc + 4]);
+        for (int kc = 0; kc < BK / 16; ++kc) c_to_a<T>(pa[kc], &sc[8 * kc], &sc[8 * kc + 4]);
       }
       for (int j = 1; j < ntiles; ++j) {
         const int cur = it + j;
@@ -281,7 +282,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
         fence_frags(pa);
         mbar_arrive(&v_empty[(cur - 1) % STAGES]);
 #pragma unroll
-        for (int kc = 0; kc < BK / 16; ++kc) c_to_a(pa[kc], &sc[8 * kc], &sc[8 * kc + 4]);
+        for (int kc = 0; kc < BK / 16; ++kc) c_to_a<T>(pa[kc], &sc[8 * kc], &sc[8 * kc + 4]);
       }
       it += ntiles;
       rescale();
@@ -296,58 +297,70 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
       const float inv_lo = 1.f / den_lo, inv_hi = 1.f / den_hi;
       constexpr float kLn2 = 0.6931471805599453f;
       if (row_lo < S) {
-        bf16* out = o + (((long)b * S + row_lo) * H + h) * D + 2 * t;
+        T* out = o + (((long)b * S + row_lo) * H + h) * D + 2 * t;
 #pragma unroll
         for (int i = 0; i < D / 8; ++i)
           *reinterpret_cast<uint32_t*>(out + 8 * i) =
-              pack_bf16(acc[4 * i] * inv_lo, acc[4 * i + 1] * inv_lo);
+              pack2<T>(acc[4 * i] * inv_lo, acc[4 * i + 1] * inv_lo);
         if (t == 0) lse[(long)bh * S + row_lo] = (m_lo + __log2f(den_lo)) * kLn2;
       }
       if (row_hi < S) {
-        bf16* out = o + (((long)b * S + row_hi) * H + h) * D + 2 * t;
+        T* out = o + (((long)b * S + row_hi) * H + h) * D + 2 * t;
 #pragma unroll
         for (int i = 0; i < D / 8; ++i)
           *reinterpret_cast<uint32_t*>(out + 8 * i) =
-              pack_bf16(acc[4 * i + 2] * inv_hi, acc[4 * i + 3] * inv_hi);
+              pack2<T>(acc[4 * i + 2] * inv_hi, acc[4 * i + 3] * inv_hi);
         if (t == 0) lse[(long)bh * S + row_hi] = (m_hi + __log2f(den_hi)) * kLn2;
       }
     }
   }
 }
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                     int S, int H, float scale, cudaStream_t stream) {
   using L = FwdLayout<D>;
   static_assert(L::SMEM <= 232448, "more shared memory than a block may have");
   CUtensorMap tq, tk, tv;
-  cudaError_t err = encode_bshd(&tq, q, B, S, H, D, L::BQ);
-  if (err == cudaSuccess) err = encode_bshd(&tk, k, B, S, H, D, L::BK);
-  if (err == cudaSuccess) err = encode_bshd(&tv, v, B, S, H, D, L::BK);
+  cudaError_t err = encode_bshd<T>(&tq, q, B, S, H, D, L::BQ);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tk, k, B, S, H, D, L::BK);
+  if (err == cudaSuccess) err = encode_bshd<T>(&tv, v, B, S, H, D, L::BK);
   if (err != cudaSuccess) return err;
   dim3 grid;
   err = persistent_grid((S + L::BQ - 1) / L::BQ, B * H, &grid);
   if (err != cudaSuccess) return err;
-  return launch(fwd_kernel<D, CAUSAL>, grid, dim3(384), L::SMEM, stream, tq, tk, tv,
-                static_cast<bf16*>(o), static_cast<float*>(lse), S, H, B * H, scale * kLog2e);
+  return launch(fwd_kernel<T, D, CAUSAL>, grid, dim3(384), L::SMEM, stream, tq, tk, tv,
+                static_cast<T*>(o), static_cast<float*>(lse), S, H, B * H, scale * kLog2e);
+}
+
+template <typename T>
+int fwd_entry(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
+              int H, int D, int causal, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return causal ? run_fwd<T, 64, true>(q, k, v, o, lse, B, S, H, scale, st)
+                  : run_fwd<T, 64, false>(q, k, v, o, lse, B, S, H, scale, st);
+  if (D == 128)
+    return causal ? run_fwd<T, 128, true>(q, k, v, o, lse, B, S, H, scale, st)
+                  : run_fwd<T, 128, false>(q, k, v, o, lse, B, S, H, scale, st);
+  if (D == 256)
+    return causal ? run_fwd<T, 256, true>(q, k, v, o, lse, B, S, H, scale, st)
+                  : run_fwd<T, 256, false>(q, k, v, o, lse, B, S, H, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace flash
 
-extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int S, int H, int D,
-                              int causal, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return causal ? flash::run_fwd<64, true>(q, k, v, o, lse, B, S, H, scale, st)
-                  : flash::run_fwd<64, false>(q, k, v, o, lse, B, S, H, scale, st);
-  if (D == 128)
-    return causal ? flash::run_fwd<128, true>(q, k, v, o, lse, B, S, H, scale, st)
-                  : flash::run_fwd<128, false>(q, k, v, o, lse, B, S, H, scale, st);
-  if (D == 256)
-    return causal ? flash::run_fwd<256, true>(q, k, v, o, lse, B, S, H, scale, st)
-                  : flash::run_fwd<256, false>(q, k, v, o, lse, B, S, H, scale, st);
-  return (int)cudaErrorInvalidValue;
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int B, int S, int H, int D, int causal, float scale,
+                              void* stream) {
+  return flash::fwd_entry<flash::bf16>(q, k, v, o, lse, B, S, H, D, causal, scale, stream);
+}
+
+extern "C" int flash_fwd_fp16(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int B, int S, int H, int D, int causal, float scale,
+                              void* stream) {
+  return flash::fwd_entry<flash::f16>(q, k, v, o, lse, B, S, H, D, causal, scale, stream);
 }
 
 extern "C" const char* flash_error_string(int err) {

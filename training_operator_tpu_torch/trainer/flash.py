@@ -9,17 +9,22 @@ module:
   flash_bwd_dkv  dk, dv       <- q, k, v, dO, lse, delta   (csrc/flash_bwd_dkv.cu)
 
 Each wrapper dispatches on the device of its inputs: a CPU tensor goes to the
-plain version (the CPU tests), a CUDA tensor launches the kernel or raises.
-There is no fallback from the card to the plain version. Every launch adds
-one to `launches[name]`. The wrappers are registered as dispatcher ops
+plain version (the CPU tests), a CUDA tensor launches the kernel of its
+dtype or raises. There is no fallback from the card to the plain version.
+Every launch adds one to `launches[name]` and to `launches_dtype[type][name]`. The wrappers are registered as dispatcher ops
 (`torch.ops.training_operator_tpu_torch.flash_*`) that carry the autograd
 rule, so selective remat can keep the forward op's outputs.
 
 Shapes follow the JAX package: q, k, v are [B, S, H, D] with equal head
 counts (GQA is expanded by attention.py's dispatcher); lse is [B*H, S, 1]
 fp32. Unlike the TPU kernels, nothing is padded to 128: the kernels mask
-keys past S themselves. On the card the kernels take bf16 and head_dim 64,
-128 or 256, at any batch*heads; any other dtype or head_dim raises there.
+keys past S themselves. On the card the kernels take bf16, fp16 and fp32 at
+head_dim 64, 128 or 256, at any batch*heads; any other dtype or head_dim
+raises there. bf16 and fp16 run the wgmma kernels (`csrc/flash_*.cu`, one
+instantiation per type: the products in the input dtype, fp32 sums, as the
+JAX kernels), fp32 its own kernels (`csrc/flash_*_fp32.cu`: 3xTF32 products
+on mma.sync, fp32-class precision; plain TF32 would miss the JAX package's
+fp32 tolerance 30-50 times over).
 """
 
 from __future__ import annotations
@@ -32,25 +37,30 @@ from training_operator_tpu_torch.trainer import kernels
 
 _MASK = -1e30
 
-KERNEL_DTYPES = (torch.bfloat16,)
+# The dtypes the kernels take, by the suffix of their C entry points.
+KERNEL_TYPES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}
+KERNEL_DTYPES = tuple(KERNEL_TYPES)
 KERNEL_HEAD_DIMS = (64, 128, 256)
 
 # Launches per kernel since the last reset_launches(): a run reads them to
 # show that its path went through the kernels. `launches_causal` counts the
-# causal ones among them (the ring launches both kinds).
+# causal ones among them (the ring launches both kinds), `launches_dtype`
+# the launches of each type's instantiation ("bf16", "fp16", "fp32").
 launches: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 launches_causal: Dict[str, int] = dict(launches)
+launches_dtype: Dict[str, Dict[str, int]] = {t: dict(launches) for t in KERNEL_TYPES.values()}
 
 
 def reset_launches() -> None:
-    for counts in (launches, launches_causal):
+    for counts in (launches, launches_causal, *launches_dtype.values()):
         for name in counts:
             counts[name] = 0
 
 
-def _count(name: str, causal: bool) -> None:
+def _count(name: str, causal: bool, dtype: torch.dtype) -> None:
     launches[name] += 1
     launches_causal[name] += int(causal)
+    launches_dtype[KERNEL_TYPES[dtype]][name] += 1
 
 
 def kernel_supports(q: torch.Tensor) -> bool:
@@ -156,10 +166,10 @@ def flash_fwd(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]
     out = torch.empty_like(q)
     lse = torch.empty((b * h, s, 1), dtype=torch.float32, device=q.device)
     kernels.load().call(
-        "flash_fwd_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        f"flash_fwd_{KERNEL_TYPES[q.dtype]}", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, s, h, d, int(causal), d ** -0.5, _stream(),
     )
-    _count("flash_fwd", causal)
+    _count("flash_fwd", causal, q.dtype)
     return out, lse
 
 
@@ -181,11 +191,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
     b, s, h, d = q.shape
     dq = torch.empty_like(q)
     kernels.load().call(
-        "flash_bwd_dq_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        f"flash_bwd_dq_{KERNEL_TYPES[q.dtype]}", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, d, int(causal),
         d ** -0.5, _stream(),
     )
-    _count("flash_bwd_dq", causal)
+    _count("flash_bwd_dq", causal, q.dtype)
     return dq
 
 
@@ -198,11 +208,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     kernels.load().call(
-        "flash_bwd_dkv_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        f"flash_bwd_dkv_{KERNEL_TYPES[q.dtype]}", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d,
         int(causal), d ** -0.5, _stream(),
     )
-    _count("flash_bwd_dkv", causal)
+    _count("flash_bwd_dkv", causal, q.dtype)
     return dk, dv
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,14 +30,26 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu")
-HEADERS = ("flash_common.cuh", "sm90_common.cuh")
-# How each source computes: a "wgmma+tma" kernel must show HGMMA and UTMALDG
-# instructions in its SASS (`sass_counts`).
+SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
+           "flash_fwd_fp32.cu", "flash_bwd_dq_fp32.cu", "flash_bwd_dkv_fp32.cu")
+HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fp32.cuh")
+# How each source computes. The wgmma+tma sources hold the bf16 and fp16
+# instantiations of each kernel, the mma.sync-3xtf32 ones the fp32 kernels
+# (3xTF32 products on mma.sync, flash_fp32.cuh).
 DESIGN = {
     "flash_fwd.cu": "wgmma+tma",
     "flash_bwd_dq.cu": "wgmma+tma",
     "flash_bwd_dkv.cu": "wgmma+tma",
+    "flash_fwd_fp32.cu": "mma.sync-3xtf32",
+    "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32",
+    "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32",
+}
+# The SASS instructions every kernel instantiation of a design must show
+# (`kernel_sass_counts`): Hopper's tensor-core wgmma (HGMMA) and TMA loads
+# (UTMALDG), or mma.sync on TF32 operands.
+DESIGN_SASS = {
+    "wgmma+tma": ("HGMMA", "UTMALDG"),
+    "mma.sync-3xtf32": ("HMMA.TF32",),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,17 +59,20 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures, in argument order (see each source's extern "C" block).
-_SIGNATURES = {
-    "flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    "flash_bwd_dq_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    "flash_bwd_dkv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+# The element types of the entry points: `<kernel>_<type>`.
+TYPES = ("bf16", "fp16", "fp32")
+# C signatures, in argument order (see each source's extern "C" block); the
+# same for every type of a kernel.
+_KERNEL_SIGNATURES = {
+    "flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
-_LIB_OF = {
-    "flash_fwd_bf16": "flash_fwd.cu",
-    "flash_bwd_dq_bf16": "flash_bwd_dq.cu",
-    "flash_bwd_dkv_bf16": "flash_bwd_dkv.cu",
-}
+_SIGNATURES = {f"{k}_{t}": sig for k, sig in _KERNEL_SIGNATURES.items() for t in TYPES}
+# The library of each entry point: bf16 and fp16 in one wgmma source, fp32
+# in its own.
+_LIB_OF = {f"{k}_{t}": f"{k}_fp32.cu" if t == "fp32" else f"{k}.cu"
+           for k in _KERNEL_SIGNATURES for t in TYPES}
 
 
 @dataclass
@@ -135,7 +151,11 @@ def build() -> tuple:
     return outs, time.perf_counter() - t0, "".join(log)
 
 
-SASS_OPS = ("HGMMA", "UTMALDG")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA.TF32")
+# What each op counts in a line of SASS: HMMA.TF32 is mma.sync with TF32
+# operands (HMMA.1688.F32.TF32 for m16n8k8).
+_SASS_PATTERNS = {"HGMMA": re.compile(r"HGMMA"), "UTMALDG": re.compile(r"UTMALDG"),
+                  "HMMA.TF32": re.compile(r"HMMA\.\w+\.F32\.TF32")}
 
 
 def _sass(lib) -> str:
@@ -144,21 +164,22 @@ def _sass(lib) -> str:
                           text=True, timeout=300, check=True).stdout
 
 
+def _counts(text: str) -> Dict[str, int]:
+    return {op: len(_SASS_PATTERNS[op].findall(text)) for op in SASS_OPS}
+
+
 def sass_counts(libraries: Dict[str, Path]) -> Dict[str, Dict[str, int]]:
-    """{source: {"HGMMA": n, "UTMALDG": n}}: Hopper tensor-core (wgmma) and
-    TMA-load instructions in each library's SASS, read with cuobjdump."""
-    counts = {}
-    for src, lib in libraries.items():
-        sass = _sass(lib)
-        counts[src] = {op: sass.count(op) for op in SASS_OPS}
-    return counts
+    """{source: {"HGMMA": n, "UTMALDG": n, "HMMA.TF32": n}}: Hopper
+    tensor-core (wgmma), TMA-load and TF32 mma.sync instructions in each
+    library's SASS, read with cuobjdump."""
+    return {src: _counts(_sass(lib)) for src, lib in libraries.items()}
 
 
 def kernel_sass_counts(libraries: Dict[str, Path]) -> Dict[str, Dict[str, Dict[str, int]]]:
-    """{source: {kernel: {"HGMMA": n, "UTMALDG": n}}}: the same counts per
-    compiled kernel (each template instantiation, by its mangled name, from
-    cuobjdump's "Function :" headers), so one instantiation of another form
-    cannot hide behind the others of its source."""
+    """{source: {kernel: {op: n}}}: the same counts per compiled kernel
+    (each template instantiation, by its mangled name, from cuobjdump's
+    "Function :" headers), so one instantiation of another form cannot hide
+    behind the others of its source."""
     counts = {}
     for src, lib in libraries.items():
         per = counts[src] = {}
@@ -168,9 +189,22 @@ def kernel_sass_counts(libraries: Dict[str, Path]) -> Dict[str, Dict[str, Dict[s
                 name = line.split("Function :", 1)[1].strip()
                 per[name] = dict.fromkeys(SASS_OPS, 0)
             elif name is not None:
-                for op in SASS_OPS:
-                    per[name][op] += line.count(op)
+                for op, n in _counts(line).items():
+                    per[name][op] += n
     return counts
+
+
+def missing_sass(per_kernel: Dict[str, Dict[str, Dict[str, int]]]) -> Dict[str, list]:
+    """{source: [kernel, ...]}: the kernel instantiations (mangled names
+    holding "_kernel") that lack an instruction their source's design
+    requires (DESIGN_SASS), and every source with no kernel at all."""
+    missing = {}
+    for src, fns in per_kernel.items():
+        need = DESIGN_SASS[DESIGN[src]]
+        short = [f for f, n in fns.items() if "_kernel" in f and not all(n[op] for op in need)]
+        if short or not any("_kernel" in f for f in fns):
+            missing[src] = short or ["no kernel"]
+    return missing
 
 
 def loaded() -> Optional[Kernels]:

@@ -132,7 +132,7 @@ def export_final(checkpoint_dir: str, done: int,
     if not os.path.isdir(final_dir):
         raise SystemExit(f"export: final checkpoint dir {final_dir} not found; "
                          "refusing to upload the whole retention history")
-    return upload(final_dir, uri)
+    return upload(final_dir, uri, e)
 
 
 def standalone_config(seq_len: int) -> TransformerConfig:
