@@ -13,10 +13,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             design must show in its SASS (cuobjdump): HGMMA (wgmma) and
             UTMALDG (TMA load) for the "wgmma+tma" sources, which hold the
             bf16 and the fp16 instantiations, HMMA on TF32 (mma.sync) for
-            the "mma.sync-3xtf32" fp32 sources (kernels.DESIGN_SASS); and
-            the same per kernel instantiation, with the count of each
-            type's. Any instantiation without its design's instructions,
-            or any spill, fails the run.
+            the "mma.sync-3xtf32" fp32 forward and dq sources, and HMMA on
+            TF32 with SYNCS (the mbarrier ring) for the fp32 dk/dv source,
+            "mma.sync-3xtf32-ring" (kernels.DESIGN_SASS); and the same per
+            kernel instantiation, with the count of each type's. Any
+            instantiation without its design's instructions, or any spill,
+            fails the run.
 3. kernels  holds each kernel against its plain PyTorch version on the card:
             in bf16 at the flagship attention shape [8, 2048, 12, 128]
             causal, at [2, 1000, 4, 64], causal and not, at phase 13's
@@ -24,7 +26,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             not causal, and at [4097, 32, 16, 64] causal, whose 65552
             (batch, head)s are more than a grid's y dimension holds; in
             fp16 and in fp32 at [8, 2048, 12, 128] causal, [2, 1000, 4, 64]
-            causal and not and [1, 4096, 8, 256] causal. Times each kernel
+            causal and not and [1, 4096, 8, 256] causal; in fp32 also at
+            [2, 1000, 4, 256] not causal, where dk/dv's 32-key and 16-row
+            tiles end raggedly and no D split remains. Times each kernel
             in each type at the flagship shape and at [1, 4096, 8, 256]
             beside its plain version, SDPA in the same type and its bound
             (bench.FLOP_RULES: fp32's at 3xTF32's 165 TFLOP/s), and the
@@ -1161,13 +1165,16 @@ def main() -> int:
     d256 = (d256_batch, d256_seq, d256_config.n_heads, d256_config.head_dim)
     cases = [(flagship, True), ((2, 1000, 4, 64), True), ((2, 1000, 4, 64), False),
              (d256, True), ((2, 1000, 4, 256), False), ((4097, 32, 16, 64), True)]
-    # fp16 and fp32: the flagship and d256 shapes (timed) and the odd length.
+    # fp16 and fp32: the flagship and d256 shapes (timed) and the odd length;
+    # fp32 also D=256 not causal, ragged in dk/dv's key and q tiles.
     typed = [(flagship, True), ((2, 1000, 4, 64), True), ((2, 1000, 4, 64), False),
              (d256, True)]
+    fp32_only = [((2, 1000, 4, 256), False)]
     errors = {}
     for i, (shape, causal, dtype) in enumerate(
             [(sh, c, torch.bfloat16) for sh, c in cases]
-            + [(sh, c, dt) for dt in (torch.float16, torch.float32) for sh, c in typed]):
+            + [(sh, c, dt) for dt in (torch.float16, torch.float32) for sh, c in typed]
+            + [(sh, c, torch.float32) for sh, c in fp32_only]):
         errs = check_kernels(flash, shape, causal, seed=i, dtype=dtype)
         errors[(shape, causal, dtype)] = errs
         log(f"kernels: {list(shape)} {str(dtype).removeprefix('torch.')} (batch*heads "

@@ -139,3 +139,10 @@ def test_attention_work_counts_the_dtype():
     assert set(bench.FLOP_RULES) == {torch.bfloat16, torch.float16, torch.float32}
     with pytest.raises(RuntimeError, match="measures the card"):
         bench.float64_errors(1, 64, 2, 64, device="cpu")
+
+
+def test_mma_sync_rate_refuses_the_cpu():
+    """The mma.sync TF32 rate is a card measurement: on a machine without a
+    card it raises before building anything."""
+    with pytest.raises(RuntimeError, match="measures the card"):
+        bench.mma_sync_rate()

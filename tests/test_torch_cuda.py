@@ -39,13 +39,20 @@ def _inputs(shape, seed, dtype=torch.bfloat16):
 # (1, 200, 2, 256) and (2, 333, 3, 256) ragged, (1, 64, 1, 256) one key
 # tile, (1, 640, 2, 256) five q tiles. (4097, 32, 16, 64): 65552 (batch,
 # head)s, more than a grid's y dimension holds. Each in bf16 and fp16 (the
-# wgmma kernels' two instantiations) and fp32 (the 3xTF32 kernels, whose
-# 64-, 32- and 16-row tiles the same lengths cut raggedly).
+# wgmma kernels' two instantiations) and fp32 (the 3xTF32 kernels). The
+# fp32 dk/dv kernel gives each 16 keys a pair of warps, four pairs (64
+# keys) a block with 32-row q tiles at D <= 128, two pairs (32 keys) with
+# 16-row q tiles at D = 256, and splits no D: (1, 1000, 2, 128) ends in a
+# tile of 40 keys (one pair with none) and an 8-row q tile,
+# (2, 1000, 4, 256) in 8 keys (one pair with none) and an 8-row q tile,
+# (1, 45, 2, 128) is shorter than one key tile, and (1, 17, 1, 256) is one
+# 16-row q tile and a row.
 @pytest.mark.parametrize("shape", [(2, 256, 4, 128), (1, 333, 2, 64), (1, 129, 2, 128),
                                    (2, 384, 3, 128), (1, 200, 2, 64), (1, 64, 1, 64),
                                    (2, 100, 3, 128), (1, 640, 2, 128), (4, 1000, 40, 64),
                                    (1, 200, 2, 256), (2, 333, 3, 256), (1, 64, 1, 256),
-                                   (1, 640, 2, 256), (4097, 32, 16, 64)])
+                                   (1, 640, 2, 256), (4097, 32, 16, 64), (1, 1000, 2, 128),
+                                   (2, 1000, 4, 256), (1, 45, 2, 128), (1, 17, 1, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_kernels_match_plain(card, shape, causal, dtype):
@@ -95,6 +102,21 @@ def test_dq_is_deterministic(card, shape, causal, dtype):
     first = flash.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     second = flash.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 12, 128), (2, 1000, 4, 256)],
+                         ids=["d128", "d256"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dkv_fp32_is_deterministic(card, shape, causal):
+    """The fp32 dk/dv kernel uses no atomics: each block writes its keys'
+    rows once, summed in one fixed order, so two launches agree bit for
+    bit; a difference is a race in its ring or its pᵀ hand-over."""
+    q, k, v, do = _inputs(shape, 5, torch.float32)
+    out, lse = flash.flash_fwd(q, k, v, causal)
+    delta = flash.row_delta(do, out)
+    first = flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    second = flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def test_kernels_refuse_what_they_do_not_take(card):

@@ -53,11 +53,17 @@ def test_tag_ignores_unlisted_files(csrc_copy):
 # What a source of each design must contain: for wgmma+tma its Hopper
 # helpers, TMA loads, wgmma products and the consumers' register hand-over;
 # for mma.sync-3xtf32 the fp32 helpers, the 3xTF32 product and cp.async
-# tile copies.
+# tile copies; for mma.sync-3xtf32-ring the 3xTF32 product, the split, the
+# mbarrier ring, the partner warps' named barriers and the hand-over.
 DESIGN_REQUIRES = {
     "wgmma+tma": ('#include "sm90_common.cuh"', "tma_load_4d", "wgmma_", "reg_alloc"),
     "mma.sync-3xtf32": ('#include "flash_fp32.cuh"', "mma3(", "load_rows_f32", "cp_wait"),
+    "mma.sync-3xtf32-ring": ('#include "flash_fp32.cuh"', '#include "sm90_common.cuh"', "mma3(",
+                             "split_tf32(", "mbar_wait(", "named_bar_sync(", "reg_alloc"),
 }
+# The helpers that split an operand as they load it from a row-major tile:
+# the ring design splits each element once instead.
+SPLIT_AS_LOADED = ("load_a(", "load_b_nk(", "load_b_kn(", "mma3_add(", "load_rows_f32", "cp_wait")
 
 
 @pytest.mark.parametrize("src", kernels.SOURCES)
@@ -75,8 +81,21 @@ def test_each_source_names_its_design(src):
     else:
         # The fp32 kernels run no product outside the 3xTF32 split.
         assert "wgmma" not in text and "mma_tf32(" not in text and "_fp32(" in text
+    if design == "mma.sync-3xtf32-ring":
+        assert not [h for h in SPLIT_AS_LOADED if h in text]
     assert set(kernels.DESIGN) == set(kernels.SOURCES)
     assert set(kernels.DESIGN.values()) == set(kernels.DESIGN_SASS)
+
+
+def test_fp32_designs():
+    """The fp32 forward and dq keep the split-as-loaded design; dk/dv is
+    the ring design, held to its TF32 products and its mbarriers."""
+    assert {src: d for src, d in kernels.DESIGN.items() if src.endswith("_fp32.cu")} == {
+        "flash_fwd_fp32.cu": "mma.sync-3xtf32",
+        "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32",
+        "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
+    }
+    assert kernels.DESIGN_SASS["mma.sync-3xtf32-ring"] == ("HMMA.TF32", "SYNCS")
 
 
 def test_every_entry_point_has_a_library():
@@ -96,7 +115,8 @@ def test_sass_counts_reads_cuobjdump(monkeypatch, tmp_path):
                 "  /*0120*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR6], R24 ;\n",
         "b.so": "  /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n",
         "c.so": "  /*0100*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n"
-                "  /*0110*/  HMMA.1688.F32.TF32 R4, R16, R12, R4 ;\n",
+                "  /*0110*/  HMMA.1688.F32.TF32 R4, R16, R12, R4 ;\n"
+                "  /*0120*/  SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R41+URZ+0x32200], R34 ;\n",
     }
     monkeypatch.setattr(kernels, "nvcc_path", lambda: str(tmp_path / "bin" / "nvcc"))
 
@@ -106,9 +126,9 @@ def test_sass_counts_reads_cuobjdump(monkeypatch, tmp_path):
 
     monkeypatch.setattr(kernels.subprocess, "run", fake_run)
     counts = kernels.sass_counts({"fwd.cu": "a.so", "dq.cu": "b.so", "fp32.cu": "c.so"})
-    assert counts == {"fwd.cu": {"HGMMA": 2, "UTMALDG": 1, "HMMA.TF32": 0},
-                      "dq.cu": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 0},
-                      "fp32.cu": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 2}}
+    assert counts == {"fwd.cu": {"HGMMA": 2, "UTMALDG": 1, "HMMA.TF32": 0, "SYNCS": 0},
+                      "dq.cu": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 0, "SYNCS": 0},
+                      "fp32.cu": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 2, "SYNCS": 1}}
 
 
 def test_kernel_sass_counts_splits_by_function(monkeypatch, tmp_path):
@@ -126,8 +146,10 @@ def test_kernel_sass_counts_splits_by_function(monkeypatch, tmp_path):
                         subprocess.CompletedProcess(cmd, 0, stdout=sass, stderr=""))
     per_kernel = kernels.kernel_sass_counts({"flash_fwd.cu": "a.so"})
     assert per_kernel == {"flash_fwd.cu": {
-        "_ZN5flash10fwd_kernelILi256ELb1EEEv": {"HGMMA": 1, "UTMALDG": 2, "HMMA.TF32": 0},
-        "_ZN5flash10fwd_kernelILi64ELb1EEEv": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 0}}}
+        "_ZN5flash10fwd_kernelILi256ELb1EEEv": {"HGMMA": 1, "UTMALDG": 2, "HMMA.TF32": 0,
+                                                "SYNCS": 0},
+        "_ZN5flash10fwd_kernelILi64ELb1EEEv": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 0,
+                                               "SYNCS": 0}}}
     # The instantiation of another form fails its source's design.
     assert kernels.missing_sass(per_kernel) == {
         "flash_fwd.cu": ["_ZN5flash10fwd_kernelILi64ELb1EEEv"]}
@@ -138,6 +160,13 @@ def test_missing_sass_holds_each_design_to_its_instructions():
     wgmma = {"HGMMA": 8, "UTMALDG": 4, "HMMA.TF32": 0}
     assert kernels.missing_sass({"flash_fwd_fp32.cu": {"_ZN5flash14fwd_f32_kernelILi64E": tf32},
                                  "flash_fwd.cu": {"_ZN5flash10fwd_kernelI6__half": wgmma}}) == {}
+    # The ring design needs its mbarriers beside its TF32 products.
+    dkv = "_ZN5flash18bwd_dkv_f32_kernelI"
+    ring = dict(tf32, SYNCS=10)
+    assert kernels.missing_sass({"flash_bwd_dkv_fp32.cu": {dkv: ring}}) == {}
+    no_ring = dict(tf32, SYNCS=0)
+    assert kernels.missing_sass({"flash_bwd_dkv_fp32.cu": {dkv: no_ring}}) == {
+        "flash_bwd_dkv_fp32.cu": [dkv]}
     # A wgmma kernel in an fp32 source, or a source without kernels, fails.
     assert kernels.missing_sass({"flash_fwd_fp32.cu": {"_ZN5flash14fwd_f32_kernelI": wgmma},
                                  "flash_fwd.cu": {}}) == {

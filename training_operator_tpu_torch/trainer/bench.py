@@ -631,6 +631,132 @@ def float64_errors(batch: int = 8, seq: int = 2048, heads: int = 12, head_dim: i
             "max_abs": r.abs().max().item()} for n, r in ref.items()}}
 
 
+# The operand patterns of `mma_sync_rate`, each a kernel of one block per
+# SM whose warps run `mma.sync` m16n8k8 TF32 on registers and time
+# themselves with clock64: "same" one A and one B into 8 independent sums;
+# "mma3" the 3xTF32 step of the fp32 dk/dv kernel's first product (two A
+# and four B fragments, hi and lo, into 8 sums); "tiles" its second product
+# (sums of 12 steps from zero, added to 4 running sums).
+_MMA_RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+struct F4 { uint32_t hi[4], lo[4]; };
+struct F2 { uint32_t hi[2], lo[2]; };
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma3(float c[4], const F4& a, const F2& b) {
+  mma(c, a.lo, b.hi); mma(c, a.hi, b.lo); mma(c, a.hi, b.hi);
+}
+template <int KIND>
+__global__ void rate(float* out, long long* cycles, int iters) {
+  F4 a0, a1; F2 b[8];
+  for (int i = 0; i < 4; ++i) {
+    a0.hi[i] = 0x3f800000u + threadIdx.x + i; a0.lo[i] = a0.hi[i] + 3;
+    a1.hi[i] = a0.hi[i] + 5; a1.lo[i] = a0.hi[i] + 9;
+  }
+  for (int n = 0; n < 8; ++n) {
+    b[n].hi[0] = 0x3f800000u + 17 * n + threadIdx.x; b[n].hi[1] = b[n].hi[0] + 1;
+    b[n].lo[0] = b[n].hi[0] + 2; b[n].lo[1] = b[n].hi[0] + 3;
+  }
+  float c[8][4] = {};
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    if (KIND == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma(c[j], a0.hi, b[0].hi);
+    } else if (KIND == 1) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) { mma3(c[n], a0, b[2 * n]); mma3(c[4 + n], a1, b[2 * n + 1]); }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float t[4] = {}, u[4] = {};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) mma3(t, k & 1 ? a1 : a0, b[4 * j + k]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) mma3(u, k & 1 ? a0 : a1, b[(4 * j + k + 1) & 7]);
+        for (int e = 0; e < 4; ++e) { c[j][e] += t[e]; c[j + 2][e] += u[e]; }
+      }
+    }
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) for (int e = 0; e < 4; ++e) s += c[j][e];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
+}
+extern "C" int mma_rate(int kind, int blocks, int threads, int iters, float* out,
+                        long long* cycles) {
+  if (kind == 0) rate<0><<<blocks, threads>>>(out, cycles, iters);
+  if (kind == 1) rate<1><<<blocks, threads>>>(out, cycles, iters);
+  if (kind == 2) rate<2><<<blocks, threads>>>(out, cycles, iters);
+  return (int)cudaGetLastError();
+}
+"""
+_MMA_PATTERNS = {"same": (0, 8), "mma3": (1, 24), "tiles": (2, 24)}  # kind, HMMA an iteration
+# 8 warps on each SM, as the fp32 dk/dv kernel's consumers; 8192 iterations
+# make each run ~1 ms, against which its launch's microseconds do not count.
+MMA_RATE_WARPS, MMA_RATE_ITERS = 8, 8192
+
+
+def mma_sync_rate() -> Dict[str, Any]:
+    """`mma.sync` m16n8k8 TF32 instructions (HMMA) issued per cycle per SM
+    on the card, for each operand pattern of `_MMA_RATE_SRC`, and the least
+    time the 3xTF32 products of the fp32 dk/dv kernel at the flagship
+    attention shape would take at each rate (3 HMMA per 16x8x8 product
+    step; SM clock from the run's cycles over its CUDA-event time). Built
+    with nvcc into the kernels' build directory; raises without a card."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    from training_operator_tpu_torch.trainer import kernels
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("mma_sync_rate measures the card; no CUDA device")
+    tag = hashlib.sha256(_MMA_RATE_SRC.encode()).hexdigest()[:16]
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = kernels.BUILD_DIR / f"mma_rate-{tag}.so"
+    if not lib_path.exists():
+        src = lib_path.with_suffix(".cu")
+        src.write_text(_MMA_RATE_SRC)
+        subprocess.run([kernels.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                        "-shared", "-Xcompiler", "-fPIC", str(src), "-o", str(lib_path)],
+                       check=True, capture_output=True, timeout=600)
+    fn = ctypes.CDLL(str(lib_path)).mma_rate
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps, iters = MMA_RATE_WARPS, MMA_RATE_ITERS
+    out = torch.empty(sms * warps * 32, device="cuda")
+    cycles = torch.empty(sms, dtype=torch.int64, device="cuda")
+    # 3 HMMA per 16x8x8 step (2048 FLOP) of the four products, kept pairs only.
+    flops = attention_work(8, 2048, 12, 128, True, torch.float32)["flash_bwd_dkv"]["flops"]
+    hmma = 3 * flops / 2048
+    result = {"warps_per_sm": warps, "sms": sms}
+    for name, (kind, per_iter) in _MMA_PATTERNS.items():
+        args = (kind, sms, warps * 32, iters, out.data_ptr(), cycles.data_ptr())
+        fn(*args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"mma_rate kernel failed: CUDA error {err}")
+        mean_cycles = cycles.double().mean().item()
+        per_cycle = warps * iters * per_iter / mean_cycles
+        clock_hz = mean_cycles / (start.elapsed_time(end) / 1e3)
+        result[name] = {"hmma_per_cycle_per_sm": per_cycle, "sm_clock_ghz": clock_hz / 1e9,
+                        "dkv_fp32_flagship_floor_ms": hmma / (per_cycle * sms * clock_hz) * 1e3}
+    return result
+
+
 # (batch, seq, heads, head_dim, causal) of `attention_sweep`: the flagship
 # attention shape with and without the mask, and a long sequence where each
 # block's fixed costs weigh least.
@@ -864,7 +990,8 @@ def main(argv=None) -> None:
     `bench_attention` at its attention shape [1, 4096, 8, 256]; with
     `--fp32`, the same three on phase 14's full-precision flagship
     (`flagship_fp32_config`), the kernels in fp32, and `float64_errors`
-    at the flagship attention shape and at [1, 4096, 8, 256]."""
+    at the flagship attention shape and at [1, 4096, 8, 256]; with
+    `--mma-rate`, only `mma_sync_rate`."""
     import argparse
     import json
     import subprocess
@@ -888,13 +1015,17 @@ def main(argv=None) -> None:
                         help="the Gemma-2B-width step (head_dim 256) and its kernels")
     parser.add_argument("--fp32", action="store_true",
                         help="the flagship step in fp32 and the fp32 kernels")
+    parser.add_argument("--mma-rate", action="store_true",
+                        help="mma.sync TF32 instructions per cycle per SM (mma_sync_rate)")
     args = parser.parse_args(argv)
     config, batch, seq = flagship_config()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    if args.d256 or args.fp32:
+    if args.mma_rate:
+        out = {"card": card, "mma_sync_rate": mma_sync_rate()}
+    elif args.d256 or args.fp32:
         config, batch, seq = gemma2b_config() if args.d256 else flagship_fp32_config()
         out = {"card": card,
                "train_step": bench_train_step(config, batch, seq, steps=5, warmup=1),

@@ -3,185 +3,433 @@
 // Replaces: training_operator_tpu/trainer/flash.py, _flash_bwd_dkv_kernel
 // (launched by _flash_bwd_folded) on fp32 inputs. Same function: with
 // p = exp(s - lse) and ds = p * (dO vᵀ - delta), dv = pᵀ dO and
-// dk = d^-0.5 * dsᵀ q; the products in fp32-class precision (3xTF32,
-// flash_fp32.cuh).
+// dk = d^-0.5 * dsᵀ q; the products in fp32-class precision (3xTF32 on
+// `mma.sync`, flash_fp32.cuh), each q tile's product summed from zero and
+// added to dk and dv in rounded fp32.
 //
 // Bound on an H100: compute. Four products per (k, q) tile pair (k qᵀ,
 // v dOᵀ, pᵀ dO, dsᵀ q): ~2.1e11 FLOP at the flagship shape, ~1.25 ms at
-// 3xTF32's 165 TFLOP/s, against ~0.6 GB of fp32 traffic (~0.18 ms).
+// 3xTF32's 165 TFLOP/s, against ~0.6 GB of fp32 traffic (~0.18 ms). Each
+// product step is three `mma.sync` m16n8k8 on TF32, so the tensor pipe's
+// rate for `mma.sync` (below the card's TF32 peak) sets the floor, and
+// what the warps issue beside the products (tf32 splits, shared loads)
+// and the gaps between them set how far above it the kernel runs. The
+// design:
 //
-// Design: one block of four warps per (k tile, batch*head), folded into
-// grid x (k tile fastest; causal: the first k tiles do the most work),
-// looping over q tiles (q, dO, lse, delta; 32 rows at D = 64, 16 above,
-// where a tile's pᵀ or dsᵀ fragments, held for its products, would leave
-// ptxas short of registers) in shared memory,
-// double-buffered by cp.async. The block computes the transposed tiles
-// sᵀ = k qᵀ and dpᵀ = v dOᵀ, so pᵀ and dsᵀ come out in the C layout with
-// keys as rows and feed pᵀ dO and dsᵀ q from the lane's own registers (the
-// permuted k axis of flash_fp32.cuh). The causal start (the first q tile
-// that reaches this k tile) is the loop's lower bound, a warp skips q tiles
-// that lie wholly before its keys, and q rows past seq_len are masked. Keys
-// past seq_len are never written. No atomics: each block writes its own
-// dk, dv rows once.
+// 1. Split once, in fragment order. A producer warpgroup reads each q and
+//    dO tile from device memory (16-byte loads, two rows at a time),
+//    splits every element once into tf32 hi and lo, and stores them into
+//    the ring as a hi plane and a lo plane in B-fragment order (8x8
+//    blocks, see `swz`): a lane's B fragment is four 4-byte loads for
+//    k qᵀ and v dOᵀ, two 8-byte loads for pᵀ dO and dsᵀ q, straight into
+//    the registers `mma.sync` reads, with no bank conflict. Each consumer
+//    warp keeps the A fragments of its own 16 keys of K (or V) in shared
+//    memory in A-fragment order: as split planes where they fit beside the
+//    ring (D = 64), else raw (one 16-byte load and four splits per
+//    fragment and q tile). The only other splits in the q loop are those
+//    of the computed pᵀ and dsᵀ (`c_to_a_tf32`). No raw copy of a q or dO
+//    tile lands in shared memory (a landing buffer would take 32 KiB a
+//    stage at D = 128, which the budget below does not have), so the ring
+//    is filled by the producer's loads, not by TMA or cp.async.
+// 2. dk and dv in partner warps (FlashAttention-3's split between
+//    warpgroups). Each 16 keys have a dv warp and a dk warp. The dv warp
+//    computes sᵀ = k qᵀ and pᵀ = exp2(sᵀ scale log2 e - lse log2 e), masked,
+//    hands pᵀ to its partner through shared memory behind two named
+//    barriers (full: the dv warp arrives, the dk warp waits; empty: the
+//    other way round), and accumulates dv += pᵀ dO. The dk warp computes
+//    dpᵀ = v dOᵀ, takes pᵀ, forms dsᵀ = pᵀ (dpᵀ - delta) and accumulates
+//    dk += dsᵀ q. Each warp does two of the four products, each product is
+//    computed once at every head dim, and a warp holds one D-wide
+//    accumulator (D / 2 registers a thread). sᵀ and dpᵀ come out in the C
+//    layout with keys as rows, so lse and delta are indexed by column, and
+//    pᵀ and dsᵀ feed the second product from the lane's own registers (the
+//    permuted k axis of flash_fp32.cuh).
+// 3. A ring, not block barriers. q, dO, lse (times log2 e) and delta tiles
+//    stream through a two-stage ring with a full and an empty mbarrier per
+//    stage: the producer waits on empty, fills, and every producer thread
+//    arrives on full; every consumer thread waits on full and arrives on
+//    empty when its products are done. The block's only __syncthreads
+//    follows the barriers' initialisation.
 //
-// A warp's dk and dv of 16 keys over D columns are D fp32 registers a
-// thread. At D = 64 and 128 each warp owns 16 keys and all D columns (a
-// 64-key tile; 69 and 99 KiB of shared memory). At D = 256 that would be
-// 256 registers, so a block takes 32 keys and warp w owns keys
-// 16 (w / 2) .. + 15 and columns 128 (w % 2) .. + 127 of dk and dv: both
-// warps of a key group compute sᵀ and dpᵀ over the whole head dim (1.5x
-// the four products' FLOP), and each reads the q and dO columns of its half
-// for its dk and dv products (130 KiB of shared memory).
+// One block per (k tile, batch*head), folded into grid x (k tile fastest;
+// causal: the first k tiles do the most work). The causal start (the first
+// q tile that reaches this k tile) is the loop's lower bound, a warp pair
+// skips q tiles that lie wholly before its keys (it still waits on and
+// releases their stages), and the mask is applied only on tiles that
+// straddle the diagonal or the end of the sequence. q rows past seq_len are
+// read as zeros and masked, keys past it are never written. No atomics:
+// each block writes its own dk, dv rows once, so results are the same from
+// run to run.
+//
+// Budget per head dim (shared memory: 227 KiB a block):
+//   D =  64: 8 consumer warps (64 keys), 32-row q tiles; K and V as planes
+//            64 KiB, ring 2 x 32.25 KiB, pᵀ hand-over 8 KiB: 136.5 KiB.
+//   D = 128: 8 consumer warps (64 keys), 32-row q tiles; K and V raw
+//            64 KiB (as planes 128 KiB, over the limit beside the ring's
+//            128.5 KiB), ring 2 x 64.25 KiB, hand-over 8 KiB: 200.5 KiB.
+//   D = 256: 4 consumer warps (32 keys; 64 would need 128 KiB of raw K and
+//            V beside the ring), 16-row q tiles; K and V raw 64 KiB (as
+//            planes 128 KiB), ring 2 x 64.1 KiB, hand-over 2 KiB: 194.3 KiB.
+// Registers: at D <= 128 the block is three warpgroups, 168 a thread at
+// launch; the producer gives up all but PRODUCER_REGS and the consumers
+// take CONSUMER_REGS (setmaxnreg). At D = 256 two warpgroups may each hold
+// 255, with no hand-over. A consumer holds its accumulator (D / 2 floats),
+// sᵀ or dpᵀ (BQ / 2, in two partial sums over the head dim, for more
+// independent `mma.sync` in flight) and the second product's A fragments
+// (BQ). Every instantiation compiles with no spill.
 #include "flash_fp32.cuh"
+#include "sm90_common.cuh"
 
 namespace flash {
 
 template <int D>
 struct DkvF32Layout {
-  static constexpr bool SPLIT = D == 256;  // a key group's two warps split D
-  static constexpr int WARPS = 4, BQ = D == 64 ? 32 : 16, LD = F32Tile<D>::LD;
-  static constexpr int BK = SPLIT ? 32 : 64;
-  static constexpr int DW = SPLIT ? D / 2 : D;  // dk, dv columns of one warp
-  static constexpr int STATS_OFF = (2 * BK + 4 * BQ) * LD;  // floats
-  static constexpr int SMEM = (STATS_OFF + 4 * BQ) * (int)sizeof(float);
+  static constexpr int PAIRS = D == 256 ? 2 : 4;  // dv warp + dk warp per 16 keys
+  static constexpr int CW = 2 * PAIRS;  // consumer warps, then one producer warpgroup
+  static constexpr int THREADS = (CW + 4) * 32;
+  static constexpr int BK = 16 * PAIRS, BQ = D == 256 ? 16 : 32;
+  static constexpr int STAGES = 2;
+  // Floats. A q or dO tile is its hi and lo planes (`swz`); a stage is the
+  // q tile, the dO tile, then BQ lse (times log2 e) and BQ delta.
+  static constexpr int PLANE = BQ * D * 2;
+  static constexpr int STAGE = 2 * PLANE + 2 * BQ;
+  static constexpr int HAND = 16 * BQ;  // one pair's pᵀ, in C-fragment order
+  static constexpr int RING_AND_HAND = STAGES * STAGE + PAIRS * HAND;
+  // K and V as split planes where they fit beside the ring, else raw.
+  static constexpr bool KV_PLANES =
+      (CW * 16 * D * 2 + RING_AND_HAND) * 4 + 2 * STAGES * 8 <= 232448;
+  static constexpr int KV_CHUNK = KV_PLANES ? 256 : 128;  // one warp's A fragment of 8 columns
+  static constexpr int KV_WARP = (D / 8) * KV_CHUNK;
+  static constexpr int RING_OFF = CW * KV_WARP;
+  static constexpr int HAND_OFF = RING_OFF + STAGES * STAGE;
+  static constexpr int BAR_OFF = HAND_OFF + PAIRS * HAND;  // even: 8-byte aligned
+  static constexpr int SMEM = BAR_OFF * 4 + 2 * STAGES * 8;
+  // Three warpgroups (D <= 128) launch with 168 registers a thread; the
+  // producer's give the consumers theirs: 128 x (168 - 40) = 256 x (232 - 168).
+  static constexpr bool HAND_OVER = CW == 8;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 };
 
+// A q or dO tile in the ring is a plane of tf32 hi values, then one of lo
+// values (each BQ x D floats), cut into 8x8 blocks (block (kc, j): rows
+// 8 kc.., columns 8 j..) of 64 floats, column-major with the columns
+// permuted: element (r, c) of block (kc, j) at 8 swz(c, j) + r. The
+// permutation spreads over all 32 banks both the consumers' loads and the
+// producer's 8-byte stores (a half warp's lanes store 4 row pairs x the
+// same column of 4 neighbouring column groups), with no rotation of data
+// between lanes. A lane's B fragment, hi and lo each in registers of their
+// own order, so `mma.sync` reads them as loaded:
+// - n = the block's rows, k = its columns (k qᵀ, v dOᵀ): (g, t) and
+//   (g, t + 4), four 4-byte loads (`nk_offsets`);
+// - k = rows 2t and 2t + 1 (the permuted k of `c_to_a_tf32`), n = column g
+//   (pᵀ dO, dsᵀ q): one 8-byte load from each plane (`kn_offset`).
+__device__ __forceinline__ int swz(int c, int j) { return c ^ ((c >> 2) & 1) ^ ((j & 1) << 1); }
+
+// Lane offsets of its nk B fragment in a block of column parity `odd`:
+// columns t and t + 4 of row g.
+__device__ __forceinline__ int2 nk_offsets(int lane, int odd) {
+  const int g = lane >> 2, t = lane & 3;
+  return make_int2(8 * swz(t, odd) + g, 8 * swz(t + 4, odd) + g);
+}
+
+__device__ __forceinline__ int kn_offset(int lane, int odd) {
+  return 8 * swz(lane >> 2, odd) + 2 * (lane & 3);
+}
+
+template <int LO>
+__device__ __forceinline__ void load_b_plane_nk(Frag<2>& b, const float* blk, int2 o) {
+  const uint32_t* h = reinterpret_cast<const uint32_t*>(blk);
+  b.hi[0] = h[o.x]; b.hi[1] = h[o.y];
+  b.lo[0] = h[LO + o.x]; b.lo[1] = h[LO + o.y];
+}
+
+template <int LO>
+__device__ __forceinline__ void load_b_plane_kn(Frag<2>& b, const float* hi) {
+  const uint2 h = *reinterpret_cast<const uint2*>(hi);
+  const uint2 l = *reinterpret_cast<const uint2*>(hi + LO);
+  b.hi[0] = h.x; b.hi[1] = h.y;
+  b.lo[0] = l.x; b.lo[1] = l.y;
+}
+
+// Each consumer warp copies the 16 rows kbase.. of K (or V) into its own
+// A-fragment order, for 8 columns at a time: lane l's a0..a3 (rows g, g+8
+// at columns t, t+4) at floats 4 l .. 4 l + 3; as planes, the hi values
+// then the lo values. Rows at or past seq_len become zeros.
+template <int D, bool PLANES>
+__device__ __forceinline__ void stage_kv(float* dst, const float* src, int kbase, int S,
+                                         long rs, int lane) {
+  constexpr int C4 = D / 4;  // float4 columns of a row
+  for (int u = lane; u < 16 * C4; u += 32) {
+    const int rr = u / C4, c0 = (u % C4) * 4;
+    const float4 x =
+        kbase + rr < S ? __ldg(reinterpret_cast<const float4*>(src + (long)(kbase + rr) * rs + c0))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + e, cc = c & 7;
+      const int slot = 4 * (4 * (rr & 7) + (cc & 3)) + (rr >> 3) + 2 * (cc >> 2);
+      if constexpr (PLANES) {
+        uint32_t hi, lo;
+        split_tf32(xs[e], hi, lo);
+        dst[(c >> 3) * 256 + slot] = __uint_as_float(hi);
+        dst[(c >> 3) * 256 + 128 + slot] = __uint_as_float(lo);
+      } else {
+        dst[(c >> 3) * 128 + slot] = xs[e];
+      }
+    }
+  }
+}
+
+template <bool PLANES>
+__device__ __forceinline__ void load_kv_frag(Frag<4>& a, const float* kv, int kk, int lane) {
+  if constexpr (PLANES) {
+    const uint4 hi = *reinterpret_cast<const uint4*>(kv + kk * 256 + 4 * lane);
+    const uint4 lo = *reinterpret_cast<const uint4*>(kv + kk * 256 + 128 + 4 * lane);
+    a.hi[0] = hi.x; a.hi[1] = hi.y; a.hi[2] = hi.z; a.hi[3] = hi.w;
+    a.lo[0] = lo.x; a.lo[1] = lo.y; a.lo[2] = lo.z; a.lo[3] = lo.w;
+  } else {
+    const float4 x = *reinterpret_cast<const float4*>(kv + kk * 128 + 4 * lane);
+    split_tf32(x.x, a.hi[0], a.lo[0]);
+    split_tf32(x.y, a.hi[1], a.lo[1]);
+    split_tf32(x.z, a.hi[2], a.lo[2]);
+    split_tf32(x.w, a.hi[3], a.lo[3]);
+  }
+}
+
+// sᵀ = k qᵀ (or dpᵀ = v dOᵀ) of the warp's 16 keys and a tile's BQ rows:
+// A from the warp's K (V) fragments, B (n = q rows, k = head dim) from the
+// q (dO) planes (`load_b_plane_nk`). Two partial sums over the head dim.
+template <int D, int BQ, bool PLANES>
+__device__ __forceinline__ void keys_by_rows(float (&out)[BQ / 8][4], const float* kv,
+                                             const float* plane, int lane) {
+  const int2 even = nk_offsets(lane, 0), odd = nk_offsets(lane, 1);
+  float part[BQ / 8][4];
+#pragma unroll
+  for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[n][e] = part[n][e] = 0.f;
+  auto step = [&](int kk) {  // head-dim columns 8 kk .. 8 kk + 15
+    Frag<4> a0, a1;
+    load_kv_frag<PLANES>(a0, kv, kk, lane);
+    load_kv_frag<PLANES>(a1, kv, kk + 1, lane);
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const float* blk = plane + ((n * (D / 8) + kk) << 6);
+      Frag<2> b;
+      load_b_plane_nk<BQ * D>(b, blk, even);
+      mma3(out[n], a0, b);
+      load_b_plane_nk<BQ * D>(b, blk + 64, odd);  // the next 8 columns' block
+      mma3(part[n], a1, b);
+    }
+  };
+#pragma unroll
+  for (int kk = 0; kk < D / 8; kk += 2) step(kk);
+#pragma unroll
+  for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[n][e] += part[n][e];
+}
+
+// acc += c M over the tile's BQ rows (dv += pᵀ dO, dk += dsᵀ q): A from the
+// C tile c (keys by rows, k permuted), B (k = rows, n = head dim) from the
+// planes of M (`load_b_plane_kn`); each 8-column tile summed from zero.
+template <int D, int BQ>
+__device__ __forceinline__ void rows_by_cols(float (&acc)[D / 8][4],
+                                             const float (&c)[BQ / 8][4], const float* plane,
+                                             int lane) {
+  const float* lane_even = plane + kn_offset(lane, 0);  // rows 2t, 2t + 1 of column g
+  const float* lane_odd = plane + kn_offset(lane, 1);
+  Frag<4> a[BQ / 8];
+#pragma unroll
+  for (int kc = 0; kc < BQ / 8; ++kc) c_to_a_tf32(a[kc], c[kc]);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    float tile[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kc = 0; kc < BQ / 8; ++kc) {
+      Frag<2> b;
+      load_b_plane_kn<BQ * D>(b, (j & 1 ? lane_odd : lane_even) + ((kc * (D / 8) + j) << 6));
+      mma3(tile, a[kc], b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += tile[e];
+  }
+}
+
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(128, 1)
+__global__ void __launch_bounds__(DkvF32Layout<D>::THREADS, 1)
 bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    float* __restrict__ dk, float* __restrict__ dv, int S, int H, float scale,
                    float scale_log2) {
   using L = DkvF32Layout<D>;
-  constexpr int BK = L::BK, BQ = L::BQ, LD = L::LD, DW = L::DW;
-  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES, PLANE = L::PLANE, PAIRS = L::PAIRS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + BK * LD;
-  float* sQdO = sV + BK * LD;  // two buffers, each a q tile then a dO tile
-  float* sStats = sK + L::STATS_OFF;  // two buffers, each lse (times log2 e) then delta
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* ring = smem + L::RING_OFF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
 
-  const int n_kt = (S + BK - 1) / BK;
-  const int k0 = (int)(blockIdx.x % n_kt) * BK;
+  const int n_kt = (S + L::BK - 1) / L::BK;
+  const int k0 = (int)(blockIdx.x % n_kt) * L::BK;
   const int bh = (int)(blockIdx.x / n_kt), b = bh / H, h = bh % H;
   const long rs = (long)H * D;
   const long off = ((long)b * S * H + h) * D;
-  const float* lse_bh = lse + (long)bh * S;
-  const float* delta_bh = delta + (long)bh * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int r0 = L::SPLIT ? 16 * (warp >> 1) : 16 * warp;  // the warp's keys in the tile
-  const int col_off = L::SPLIT ? DW * (warp & 1) : 0;      // and its dk, dv columns
-  const int kbase = k0 + r0;
-  const int key_lo = kbase + (lane >> 2), key_hi = key_lo + 8;
-
   const int qstart = CAUSAL ? (k0 / BQ) * BQ : 0;
   const int ntiles = (S - qstart + BQ - 1) / BQ;
-  auto load_q_tile = [&](int buf, int q0) {
-    float* dst = sQdO + buf * 2 * BQ * LD;
-    load_rows_f32<BQ, D>(dst, q + off, q0, S, rs);
-    load_rows_f32<BQ, D>(dst + BQ * LD, dout + off, q0, S, rs);
-    load_stats(sStats + buf * 2 * BQ, lse_bh, BQ, q0, S);
-    load_stats(sStats + buf * 2 * BQ + BQ, delta_bh, BQ, q0, S);
-  };
-  load_rows_f32<BK, D>(sK, k + off, k0, S, rs);
-  load_rows_f32<BK, D>(sV, v + off, k0, S, rs);
-  load_q_tile(0, qstart);
-  cp_commit();
 
-  float dk_acc[DW / 8][4], dv_acc[DW / 8][4];
-#pragma unroll
-  for (int j = 0; j < DW / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int q0 = qstart + it * BQ;
-    const float* cQ = sQdO + (it & 1) * 2 * BQ * LD;
-    const float* cdO = cQ + BQ * LD;
-    const float* cL = sStats + (it & 1) * 2 * BQ;
-    const float* cD = cL + BQ;
-    if (it + 1 < ntiles) {  // the next tile's copy runs under this tile's math
-      load_q_tile((it + 1) & 1, q0 + BQ);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 128);          // every producer thread
+      mbar_init(&empty[s], L::CW * 32);  // every consumer thread
     }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    if (!(CAUSAL && q0 + BQ - 1 < kbase)) {  // some q row reaches the warp's keys
-      float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+  if (warp >= L::CW) {
+    // Producer warpgroup. A warp step covers one tensor's 8 rows x 32
+    // columns: lane (rp, cg) = (lane & 3, lane >> 2) loads rows 2 rp and
+    // 2 rp + 1 at columns 4 cg .. 4 cg + 3 and stores each column's hi
+    // pair and lo pair where `swz` puts it.
+    if constexpr (L::HAND_OVER) reg_dealloc<L::PRODUCER_REGS>();
+    const int pw = warp - L::CW, pt = threadIdx.x - 32 * L::CW;
+    const int rp = lane & 3, cg = lane >> 2;
+    constexpr int GROUPS = (BQ / 8) * (D / 32);  // steps per tensor
+    constexpr int PER = 2 * GROUPS / 4;          // steps per warp and tile
+    const float* lse_bh = lse + (long)bh * S;
+    const float* delta_bh = delta + (long)bh * S;
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % STAGES;
+      mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+      float* stage = ring + s * L::STAGE;
+      const int q0 = qstart + j * BQ;
 #pragma unroll 2
-      for (int kk = 0; kk < D / 8; ++kk) {
-        Frag<4> ak, av;
-        load_a(ak, sK, LD, r0, kk * 8, lane);
-        load_a(av, sV, LD, r0, kk * 8, lane);
-#pragma unroll
-        for (int n = 0; n < BQ / 8; ++n) {
-          Frag<2> bb;
-          load_b_nk(bb, cQ, LD, n * 8, kk * 8, lane);
-          mma3(st[n], ak, bb);
-          load_b_nk(bb, cdO, LD, n * 8, kk * 8, lane);
-          mma3(dpt[n], av, bb);
-        }
-      }
-
-      // pᵀ and dsᵀ: keys as rows, q rows as columns, so lse and delta are
-      // indexed by column.
-      const bool edge = (q0 + BQ > S) || (CAUSAL && q0 < kbase + 15);
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n) {
+      for (int i = 0; i < PER; ++i) {
+        const int w = pw + 4 * i;
+        const int x = w / GROUPS, kc = (w % GROUPS) / (D / 32), cc = w % (D / 32);
+        const int r = 8 * kc + 2 * rp, c0 = 32 * cc + 4 * cg;
+        const float* src = (x ? dout : q) + off + c0;
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 v0 =
+            q0 + r < S ? __ldg(reinterpret_cast<const float4*>(src + (long)(q0 + r) * rs)) : zero;
+        const float4 v1 = q0 + r + 1 < S
+                              ? __ldg(reinterpret_cast<const float4*>(src + (long)(q0 + r + 1) * rs))
+                              : zero;
+        const float a0[4] = {v0.x, v0.y, v0.z, v0.w}, a1[4] = {v1.x, v1.y, v1.z, v1.w};
+        // Rows r, r + 1 of block (kc, c0 / 8), hi plane.
+        float* blk = stage + x * PLANE + ((kc * (D / 8) + (c0 >> 3)) << 6) + (r & 7);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int ci = n * 8 + 2 * t + (e & 1);  // q row within the tile
-          float p = exp2f(fmaf(st[n][e], scale_log2, -cL[ci] * kLog2e));
-          if (edge) {
-            const int key = e < 2 ? key_lo : key_hi;
-            if (q0 + ci >= S || (CAUSAL && q0 + ci < key)) p = 0.f;
-          }
-          st[n][e] = p;                                  // pᵀ
-          dpt[n][e] = p * (dpt[n][e] - cD[ci]);          // dsᵀ
+          float* at = blk + 8 * swz((c0 & 7) + e, c0 >> 3);
+          uint32_t h0, l0, h1, l1;
+          split_tf32(a0[e], h0, l0);
+          split_tf32(a1[e], h1, l1);
+          *reinterpret_cast<uint2*>(at) = make_uint2(h0, h1);
+          *reinterpret_cast<uint2*>(at + BQ * D) = make_uint2(l0, l1);
         }
       }
-      // dv += pᵀ dO and dk += dsᵀ q, each tile's summed on its own.
-      Frag<4> a[BQ / 8];
-#pragma unroll
-      for (int kc = 0; kc < BQ / 8; ++kc) c_to_a_tf32(a[kc], st[kc]);
-#pragma unroll
-      for (int j = 0; j < DW / 8; ++j)
-        mma3_add(dv_acc[j], a, cdO, LD, col_off + j * 8, lane);
-#pragma unroll
-      for (int kc = 0; kc < BQ / 8; ++kc) c_to_a_tf32(a[kc], dpt[kc]);
-#pragma unroll
-      for (int j = 0; j < DW / 8; ++j)
-        mma3_add(dk_acc[j], a, cQ, LD, col_off + j * 8, lane);
+      if (pt < BQ) {
+        const bool in = q0 + pt < S;
+        stage[2 * PLANE + pt] = in ? lse_bh[q0 + pt] * kLog2e : 0.f;
+        stage[2 * PLANE + BQ + pt] = in ? delta_bh[q0 + pt] : 0.f;
+      }
+      mbar_arrive(&full[s]);  // release: this thread's stores are seen by the waiters
     }
-    __syncthreads();  // every warp is done with this buffer before it refills
+    return;
   }
 
-  if (key_lo < S) {
-    const long o = off + (long)key_lo * rs + col_off + 2 * t;
+  // Consumers: pair `group` owns keys k0 + 16 group .. + 15; role 0 is the
+  // dv warp (k qᵀ, pᵀ, pᵀ dO), role 1 the dk warp (v dOᵀ, dsᵀ, dsᵀ q).
+  if constexpr (L::HAND_OVER) reg_alloc<L::CONSUMER_REGS>();
+  const int group = warp >> 1, role = warp & 1;
+  const int bar_full = 1 + group, bar_empty = 1 + PAIRS + group;
+  const int t = lane & 3;
+  const int kbase = k0 + 16 * group;
+  const int key_lo = kbase + (lane >> 2), key_hi = key_lo + 8;
+  float* kv = smem + warp * L::KV_WARP;
+  float* hand = smem + L::HAND_OFF + group * L::HAND;
+  stage_kv<D, L::KV_PLANES>(kv, (role ? v : k) + off, kbase, S, rs, lane);
+  __syncwarp();
+
+  float acc[D / 8][4];
 #pragma unroll
-    for (int j = 0; j < DW / 8; ++j) {
-      *reinterpret_cast<float2*>(dk + o + j * 8) =
-          make_float2(dk_acc[j][0] * scale, dk_acc[j][1] * scale);
-      *reinterpret_cast<float2*>(dv + o + j * 8) = make_float2(dv_acc[j][0], dv_acc[j][1]);
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  bool handed = false;  // the dv warp has handed over a pᵀ before
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % STAGES;
+    const int q0 = qstart + it * BQ;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    if (!(CAUSAL && q0 + BQ - 1 < kbase)) {  // some q row reaches the pair's keys
+      const float* stage = ring + s * L::STAGE;
+      const float* c_lse = stage + 2 * PLANE;
+      const float* c_delta = c_lse + BQ;
+      float c[BQ / 8][4];
+      keys_by_rows<D, BQ, L::KV_PLANES>(c, kv, stage + role * PLANE, lane);
+      if (role == 0) {
+        const bool edge = (q0 + BQ > S) || (CAUSAL && q0 < kbase + 15);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+          const float2 l2 = *reinterpret_cast<const float2*>(c_lse + n * 8 + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ci = n * 8 + 2 * t + (e & 1);  // q row within the tile
+            float p = exp2f(fmaf(c[n][e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+            if (edge) {
+              const int key = e < 2 ? key_lo : key_hi;
+              if (q0 + ci >= S || (CAUSAL && q0 + ci < key)) p = 0.f;
+            }
+            c[n][e] = p;  // pᵀ
+          }
+        }
+        if (handed) named_bar_sync(bar_empty, 64);  // the dk warp took the last one
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n)
+          *reinterpret_cast<float4*>(hand + n * 128 + 4 * lane) =
+              make_float4(c[n][0], c[n][1], c[n][2], c[n][3]);
+        named_bar_arrive(bar_full, 64);
+        handed = true;
+      } else {
+        named_bar_sync(bar_full, 64);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+          const float4 p = *reinterpret_cast<const float4*>(hand + n * 128 + 4 * lane);
+          const float2 d2 = *reinterpret_cast<const float2*>(c_delta + n * 8 + 2 * t);
+          c[n][0] = p.x * (c[n][0] - d2.x);  // dsᵀ
+          c[n][1] = p.y * (c[n][1] - d2.y);
+          c[n][2] = p.z * (c[n][2] - d2.x);
+          c[n][3] = p.w * (c[n][3] - d2.y);
+        }
+        // The pair computes every later tile too (skipped tiles are a
+        // prefix), so the dv warp waits for this release exactly when it
+        // comes.
+        if (it + 1 < ntiles) named_bar_arrive(bar_empty, 64);
+      }
+      rows_by_cols<D, BQ>(acc, c, stage + (1 - role) * PLANE, lane);
     }
+    mbar_arrive(&empty[s]);
+  }
+
+  float* dst = role ? dk : dv;
+  const float mul = role ? scale : 1.f;
+  const int col = 2 * t;
+  if (key_lo < S) {
+    const long o = off + (long)key_lo * rs + col;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + o + j * 8) = make_float2(acc[j][0] * mul, acc[j][1] * mul);
   }
   if (key_hi < S) {
-    const long o = off + (long)key_hi * rs + col_off + 2 * t;
+    const long o = off + (long)key_hi * rs + col;
 #pragma unroll
-    for (int j = 0; j < DW / 8; ++j) {
-      *reinterpret_cast<float2*>(dk + o + j * 8) =
-          make_float2(dk_acc[j][2] * scale, dk_acc[j][3] * scale);
-      *reinterpret_cast<float2*>(dv + o + j * 8) = make_float2(dv_acc[j][2], dv_acc[j][3]);
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + o + j * 8) = make_float2(acc[j][2] * mul, acc[j][3] * mul);
   }
 }
 
@@ -191,11 +439,13 @@ cudaError_t run_dkv_f32(const void* q, const void* k, const void* v, const void*
                         int H, float scale, cudaStream_t stream) {
   using L = DkvF32Layout<D>;
   static_assert(L::SMEM <= 232448, "more shared memory than a block may have");
+  static_assert(!L::HAND_OVER || (L::THREADS == 384 && 128 * (168 - L::PRODUCER_REGS) >=
+                                                            256 * (L::CONSUMER_REGS - 168)),
+                "the consumers take more registers than the producer gives up");
   dim3 grid;
   const cudaError_t err = folded_grid((S + L::BK - 1) / L::BK, (long)B * H, &grid);
   if (err != cudaSuccess) return err;
-  constexpr float kLog2e = 1.4426950408889634f;
-  return launch(bwd_dkv_f32_kernel<D, CAUSAL>, grid, dim3(L::WARPS * 32), L::SMEM, stream,
+  return launch(bwd_dkv_f32_kernel<D, CAUSAL>, grid, dim3(L::THREADS), L::SMEM, stream,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout),
                 static_cast<const float*>(lse), static_cast<const float*>(delta),

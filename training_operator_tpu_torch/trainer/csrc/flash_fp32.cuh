@@ -1,6 +1,9 @@
 // Shared building blocks of the fp32 flash-attention kernels (sm_90a):
-// the 3xTF32 product on `mma.sync`, its fragment loads from shared memory,
-// and `cp.async` tile copies.
+// the 3xTF32 product on `mma.sync` and the tf32 split, used by all three;
+// and, for the forward and dq kernels, fragment loads that split each
+// operand as they load it from a row-major shared tile, filled by
+// `cp.async` copies. The dk/dv kernel (flash_bwd_dkv_fp32.cu) splits each
+// q and dO element once into fragment-ordered planes and has its own loads.
 //
 // Layout contract with trainer/flash.py: q, k, v, out, dO, dq, dk, dv are
 // contiguous fp32 [B, S, H, D] (row stride H*D elements); lse and delta are
@@ -24,21 +27,24 @@
 // A is a C tile (p v, ds k, pᵀ dO, dsᵀ q) reads its k axis permuted: A
 // column t is C column 2t and A column t+4 is C column 2t+1, so a lane's
 // own c0..c3 are its A fragment, and B rows t and t+4 are read from rows 2t
-// and 2t+1 of the shared tile (`load_b_kn`).
+// and 2t+1 of the shared tile (`load_b_kn`; the dk/dv kernel's planes
+// store them side by side).
 //
 // Accumulation: mma adds into its fp32 accumulator with truncation, so a
 // sum carried through every product of a long loop (o over the keys, dq
 // over the keys, dk and dv over the queries: ~1,500 mma steps at S = 4096)
 // drifts toward zero by up to an ulp a step. Each key or query tile's
 // product is therefore summed from zero in registers of its own
-// (`mma3_tile`, at most 24 steps) and added to the running sum with a
-// rounded fp32 add (`mma3_add`). The tile's A fragments are all held for
-// it, which sets the tile sizes where registers are short.
+// (`mma3_tile`, at most 24 steps; the dk/dv kernel's `rows_by_cols` the
+// same) and added to the running sum with a rounded fp32 add
+// (`mma3_add`). The tile's A fragments are all held for it, which sets the
+// tile sizes where registers are short.
 //
-// Shared tiles are row-major with a row stride of D + 4 floats: 4 banks
-// apart, so the eight rows times four columns of an A or B fragment
-// (`load_a`, `load_b_nk`) and the 2t / 2t+1 rows times eight columns of a
-// permuted B fragment (`load_b_kn`) fall on 32 distinct banks.
+// The forward and dq kernels' shared tiles are row-major with a row stride
+// of D + 4 floats: 4 banks apart, so the eight rows times four columns of
+// an A or B fragment (`load_a`, `load_b_nk`) and the 2t / 2t+1 rows times
+// eight columns of a permuted B fragment (`load_b_kn`) fall on 32 distinct
+// banks.
 #pragma once
 
 #include "flash_common.cuh"

@@ -35,21 +35,26 @@ SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
 HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fp32.cuh")
 # How each source computes. The wgmma+tma sources hold the bf16 and fp16
 # instantiations of each kernel, the mma.sync-3xtf32 ones the fp32 kernels
-# (3xTF32 products on mma.sync, flash_fp32.cuh).
+# (3xTF32 products on mma.sync, flash_fp32.cuh, operands split as they
+# are loaded); mma.sync-3xtf32-ring is the fp32 dk/dv kernel's: q and dO
+# split once into fragment-ordered planes by a producer warpgroup and
+# streamed through an mbarrier ring to dk and dv partner warps.
 DESIGN = {
     "flash_fwd.cu": "wgmma+tma",
     "flash_bwd_dq.cu": "wgmma+tma",
     "flash_bwd_dkv.cu": "wgmma+tma",
     "flash_fwd_fp32.cu": "mma.sync-3xtf32",
     "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32",
-    "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32",
+    "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
 }
 # The SASS instructions every kernel instantiation of a design must show
 # (`kernel_sass_counts`): Hopper's tensor-core wgmma (HGMMA) and TMA loads
-# (UTMALDG), or mma.sync on TF32 operands.
+# (UTMALDG), or mma.sync on TF32 operands, with the ring's mbarrier
+# operations (SYNCS) where the design has one.
 DESIGN_SASS = {
     "wgmma+tma": ("HGMMA", "UTMALDG"),
     "mma.sync-3xtf32": ("HMMA.TF32",),
+    "mma.sync-3xtf32-ring": ("HMMA.TF32", "SYNCS"),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -151,11 +156,13 @@ def build() -> tuple:
     return outs, time.perf_counter() - t0, "".join(log)
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA.TF32")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA.TF32", "SYNCS")
 # What each op counts in a line of SASS: HMMA.TF32 is mma.sync with TF32
-# operands (HMMA.1688.F32.TF32 for m16n8k8).
+# operands (HMMA.1688.F32.TF32 for m16n8k8); SYNCS an mbarrier operation
+# (init, arrive, phase check).
 _SASS_PATTERNS = {"HGMMA": re.compile(r"HGMMA"), "UTMALDG": re.compile(r"UTMALDG"),
-                  "HMMA.TF32": re.compile(r"HMMA\.\w+\.F32\.TF32")}
+                  "HMMA.TF32": re.compile(r"HMMA\.\w+\.F32\.TF32"),
+                  "SYNCS": re.compile(r"\bSYNCS\.")}
 
 
 def _sass(lib) -> str:
@@ -169,9 +176,9 @@ def _counts(text: str) -> Dict[str, int]:
 
 
 def sass_counts(libraries: Dict[str, Path]) -> Dict[str, Dict[str, int]]:
-    """{source: {"HGMMA": n, "UTMALDG": n, "HMMA.TF32": n}}: Hopper
-    tensor-core (wgmma), TMA-load and TF32 mma.sync instructions in each
-    library's SASS, read with cuobjdump."""
+    """{source: {"HGMMA": n, "UTMALDG": n, "HMMA.TF32": n, "SYNCS": n}}:
+    Hopper tensor-core (wgmma), TMA-load, TF32 mma.sync and mbarrier
+    instructions in each library's SASS, read with cuobjdump."""
     return {src: _counts(_sass(lib)) for src, lib in libraries.items()}
 
 
