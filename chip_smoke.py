@@ -13,10 +13,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             design must show in its SASS (cuobjdump): HGMMA (wgmma) and
             UTMALDG (TMA load) for the "wgmma+tma" sources, which hold the
             bf16 and the fp16 instantiations, HMMA on TF32 (mma.sync) for
-            the "mma.sync-3xtf32" fp32 forward and dq sources, and HMMA on
-            TF32 with SYNCS (the mbarrier ring) for the fp32 dk/dv source,
-            "mma.sync-3xtf32-ring" (kernels.DESIGN_SASS); and the same per
-            kernel instantiation, with the count of each type's. Any
+            the "mma.sync-3xtf32" fp32 forward source, and HMMA on TF32
+            with SYNCS (the mbarrier ring) for the fp32 dq and dk/dv
+            sources, "mma.sync-3xtf32-ring" (kernels.DESIGN_SASS); and the
+            same per kernel instantiation, with the count of each type's. Any
             instantiation without its design's instructions, or any spill,
             fails the run.
 3. kernels  holds each kernel against its plain PyTorch version on the card:

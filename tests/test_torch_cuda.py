@@ -39,20 +39,32 @@ def _inputs(shape, seed, dtype=torch.bfloat16):
 # (1, 200, 2, 256) and (2, 333, 3, 256) ragged, (1, 64, 1, 256) one key
 # tile, (1, 640, 2, 256) five q tiles. (4097, 32, 16, 64): 65552 (batch,
 # head)s, more than a grid's y dimension holds. Each in bf16 and fp16 (the
-# wgmma kernels' two instantiations) and fp32 (the 3xTF32 kernels). The
-# fp32 dk/dv kernel gives each 16 keys a pair of warps, four pairs (64
+# wgmma kernels' two instantiations) and fp32 (the 3xTF32 kernels).
+# The fp32 dk/dv kernel gives each 16 keys a pair of warps, four pairs (64
 # keys) a block with 32-row q tiles at D <= 128, two pairs (32 keys) with
 # 16-row q tiles at D = 256, and splits no D: (1, 1000, 2, 128) ends in a
 # tile of 40 keys (one pair with none) and an 8-row q tile,
 # (2, 1000, 4, 256) in 8 keys (one pair with none) and an 8-row q tile,
 # (1, 45, 2, 128) is shorter than one key tile, and (1, 17, 1, 256) is one
 # 16-row q tile and a row.
+# The fp32 dq kernel gives each 16 q rows a pair of warps, four pairs (64
+# rows) a block at D <= 128 and two (32 rows) at D = 256, and streams key
+# tiles of 32 (D = 64) or 16 keys through a two-stage ring: (1, 333, 2, 64)
+# ends in 13 rows (pairs with none) and an 11th key tile of 13 keys, so the
+# ring wraps with one stage part used; (1, 1000, 2, 128) 63 key tiles, the
+# last of 8 keys; (2, 333, 3, 256) a 13-row last tile (fewer than one
+# pair's 16) and 21 key tiles. New for it: (2, 15, 3, 128), one key tile and
+# 15 rows, so one stage is never filled; (1, 40, 2, 256), a last q tile of
+# 8 rows (its second pair has none) and 3 key tiles, the last half used;
+# (3, 97, 2, 64), a last q tile of 33 rows (one pair with one row, one with
+# none) and 4 key tiles, the last of one key.
 @pytest.mark.parametrize("shape", [(2, 256, 4, 128), (1, 333, 2, 64), (1, 129, 2, 128),
                                    (2, 384, 3, 128), (1, 200, 2, 64), (1, 64, 1, 64),
                                    (2, 100, 3, 128), (1, 640, 2, 128), (4, 1000, 40, 64),
                                    (1, 200, 2, 256), (2, 333, 3, 256), (1, 64, 1, 256),
                                    (1, 640, 2, 256), (4097, 32, 16, 64), (1, 1000, 2, 128),
-                                   (2, 1000, 4, 256), (1, 45, 2, 128), (1, 17, 1, 256)])
+                                   (2, 1000, 4, 256), (1, 45, 2, 128), (1, 17, 1, 256),
+                                   (2, 15, 3, 128), (1, 40, 2, 256), (3, 97, 2, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_kernels_match_plain(card, shape, causal, dtype):

@@ -53,13 +53,17 @@ def test_tag_ignores_unlisted_files(csrc_copy):
 # What a source of each design must contain: for wgmma+tma its Hopper
 # helpers, TMA loads, wgmma products and the consumers' register hand-over;
 # for mma.sync-3xtf32 the fp32 helpers, the 3xTF32 product and cp.async
-# tile copies; for mma.sync-3xtf32-ring the 3xTF32 product, the split, the
-# mbarrier ring, the partner warps' named barriers and the hand-over.
+# tile copies; for mma.sync-3xtf32-ring the shared split-once helpers of
+# flash_fp32.cuh (the producer's split into B planes, `store_b_planes` or
+# its step `store_b_step`; a warp's A planes; the 3xTF32 products that read
+# the planes; the split of a computed tile), the mbarrier ring,
+# the partner warps' named barriers and the register hand-over.
 DESIGN_REQUIRES = {
     "wgmma+tma": ('#include "sm90_common.cuh"', "tma_load_4d", "wgmma_", "reg_alloc"),
     "mma.sync-3xtf32": ('#include "flash_fp32.cuh"', "mma3(", "load_rows_f32", "cp_wait"),
-    "mma.sync-3xtf32-ring": ('#include "flash_fp32.cuh"', '#include "sm90_common.cuh"', "mma3(",
-                             "split_tf32(", "mbar_wait(", "named_bar_sync(", "reg_alloc"),
+    "mma.sync-3xtf32-ring": ('#include "flash_fp32.cuh"', '#include "sm90_common.cuh"',
+                             "store_b_", "stage_a_planes<", "mma3_nk<", "mma3_kn<",
+                             "c_to_a_tf32(", "mbar_wait(", "named_bar_sync(", "reg_alloc"),
 }
 # The helpers that split an operand as they load it from a row-major tile:
 # the ring design splits each element once instead.
@@ -87,12 +91,27 @@ def test_each_source_names_its_design(src):
     assert set(kernels.DESIGN.values()) == set(kernels.DESIGN_SASS)
 
 
+RING_SOURCES = [src for src, d in kernels.DESIGN.items() if d == "mma.sync-3xtf32-ring"]
+
+
+@pytest.mark.parametrize("src", RING_SOURCES)
+def test_ring_sources_meet_the_block_once(src):
+    """A ring kernel's block meets at one __syncthreads, the one after the
+    mbarriers' initialisation: in their loops the producer and the
+    consumers wait on the ring's mbarriers and the partners on their named
+    barriers alone."""
+    code = "\n".join(line.split("//", 1)[0] for line in
+                     (kernels.CSRC / src).read_text().splitlines())
+    assert code.count("__syncthreads()") == 1
+    assert 0 < code.index("__syncthreads()") - code.index("mbar_init_fence()") < 40
+
+
 def test_fp32_designs():
-    """The fp32 forward and dq keep the split-as-loaded design; dk/dv is
+    """The fp32 forward keeps the split-as-loaded design; dq and dk/dv are
     the ring design, held to its TF32 products and its mbarriers."""
     assert {src: d for src, d in kernels.DESIGN.items() if src.endswith("_fp32.cu")} == {
         "flash_fwd_fp32.cu": "mma.sync-3xtf32",
-        "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32",
+        "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32-ring",
         "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
     }
     assert kernels.DESIGN_SASS["mma.sync-3xtf32-ring"] == ("HMMA.TF32", "SYNCS")

@@ -20,17 +20,18 @@
 //    dO tile from device memory (16-byte loads, two rows at a time),
 //    splits every element once into tf32 hi and lo, and stores them into
 //    the ring as a hi plane and a lo plane in B-fragment order (8x8
-//    blocks, see `swz`): a lane's B fragment is four 4-byte loads for
+//    blocks, `store_b_planes` and `swz` in flash_fp32.cuh, shared with the
+//    dq kernel): a lane's B fragment is four 4-byte loads for
 //    k qᵀ and v dOᵀ, two 8-byte loads for pᵀ dO and dsᵀ q, straight into
 //    the registers `mma.sync` reads, with no bank conflict. Each consumer
 //    warp keeps the A fragments of its own 16 keys of K (or V) in shared
-//    memory in A-fragment order: as split planes where they fit beside the
-//    ring (D = 64), else raw (one 16-byte load and four splits per
-//    fragment and q tile). The only other splits in the q loop are those
-//    of the computed pᵀ and dsᵀ (`c_to_a_tf32`). No raw copy of a q or dO
-//    tile lands in shared memory (a landing buffer would take 32 KiB a
-//    stage at D = 128, which the budget below does not have), so the ring
-//    is filled by the producer's loads, not by TMA or cp.async.
+//    memory in A-fragment order (`stage_a_planes`): as split planes where
+//    they fit beside the ring (D = 64), else raw (one 16-byte load and four
+//    splits per fragment and q tile). The only other splits in the q loop
+//    are those of the computed pᵀ and dsᵀ (`c_to_a_tf32`). No raw copy of a
+//    q or dO tile lands in shared memory (a landing buffer would take 32
+//    KiB a stage at D = 128, which the budget below does not have), so the
+//    ring is filled by the producer's loads, not by TMA or cp.async.
 // 2. dk and dv in partner warps (FlashAttention-3's split between
 //    warpgroups). Each 16 keys have a dv warp and a dk warp. The dv warp
 //    computes sᵀ = k qᵀ and pᵀ = exp2(sᵀ scale log2 e - lse log2 e), masked,
@@ -110,153 +111,6 @@ struct DkvF32Layout {
   static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 };
 
-// A q or dO tile in the ring is a plane of tf32 hi values, then one of lo
-// values (each BQ x D floats), cut into 8x8 blocks (block (kc, j): rows
-// 8 kc.., columns 8 j..) of 64 floats, column-major with the columns
-// permuted: element (r, c) of block (kc, j) at 8 swz(c, j) + r. The
-// permutation spreads over all 32 banks both the consumers' loads and the
-// producer's 8-byte stores (a half warp's lanes store 4 row pairs x the
-// same column of 4 neighbouring column groups), with no rotation of data
-// between lanes. A lane's B fragment, hi and lo each in registers of their
-// own order, so `mma.sync` reads them as loaded:
-// - n = the block's rows, k = its columns (k qᵀ, v dOᵀ): (g, t) and
-//   (g, t + 4), four 4-byte loads (`nk_offsets`);
-// - k = rows 2t and 2t + 1 (the permuted k of `c_to_a_tf32`), n = column g
-//   (pᵀ dO, dsᵀ q): one 8-byte load from each plane (`kn_offset`).
-__device__ __forceinline__ int swz(int c, int j) { return c ^ ((c >> 2) & 1) ^ ((j & 1) << 1); }
-
-// Lane offsets of its nk B fragment in a block of column parity `odd`:
-// columns t and t + 4 of row g.
-__device__ __forceinline__ int2 nk_offsets(int lane, int odd) {
-  const int g = lane >> 2, t = lane & 3;
-  return make_int2(8 * swz(t, odd) + g, 8 * swz(t + 4, odd) + g);
-}
-
-__device__ __forceinline__ int kn_offset(int lane, int odd) {
-  return 8 * swz(lane >> 2, odd) + 2 * (lane & 3);
-}
-
-template <int LO>
-__device__ __forceinline__ void load_b_plane_nk(Frag<2>& b, const float* blk, int2 o) {
-  const uint32_t* h = reinterpret_cast<const uint32_t*>(blk);
-  b.hi[0] = h[o.x]; b.hi[1] = h[o.y];
-  b.lo[0] = h[LO + o.x]; b.lo[1] = h[LO + o.y];
-}
-
-template <int LO>
-__device__ __forceinline__ void load_b_plane_kn(Frag<2>& b, const float* hi) {
-  const uint2 h = *reinterpret_cast<const uint2*>(hi);
-  const uint2 l = *reinterpret_cast<const uint2*>(hi + LO);
-  b.hi[0] = h.x; b.hi[1] = h.y;
-  b.lo[0] = l.x; b.lo[1] = l.y;
-}
-
-// Each consumer warp copies the 16 rows kbase.. of K (or V) into its own
-// A-fragment order, for 8 columns at a time: lane l's a0..a3 (rows g, g+8
-// at columns t, t+4) at floats 4 l .. 4 l + 3; as planes, the hi values
-// then the lo values. Rows at or past seq_len become zeros.
-template <int D, bool PLANES>
-__device__ __forceinline__ void stage_kv(float* dst, const float* src, int kbase, int S,
-                                         long rs, int lane) {
-  constexpr int C4 = D / 4;  // float4 columns of a row
-  for (int u = lane; u < 16 * C4; u += 32) {
-    const int rr = u / C4, c0 = (u % C4) * 4;
-    const float4 x =
-        kbase + rr < S ? __ldg(reinterpret_cast<const float4*>(src + (long)(kbase + rr) * rs + c0))
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = c0 + e, cc = c & 7;
-      const int slot = 4 * (4 * (rr & 7) + (cc & 3)) + (rr >> 3) + 2 * (cc >> 2);
-      if constexpr (PLANES) {
-        uint32_t hi, lo;
-        split_tf32(xs[e], hi, lo);
-        dst[(c >> 3) * 256 + slot] = __uint_as_float(hi);
-        dst[(c >> 3) * 256 + 128 + slot] = __uint_as_float(lo);
-      } else {
-        dst[(c >> 3) * 128 + slot] = xs[e];
-      }
-    }
-  }
-}
-
-template <bool PLANES>
-__device__ __forceinline__ void load_kv_frag(Frag<4>& a, const float* kv, int kk, int lane) {
-  if constexpr (PLANES) {
-    const uint4 hi = *reinterpret_cast<const uint4*>(kv + kk * 256 + 4 * lane);
-    const uint4 lo = *reinterpret_cast<const uint4*>(kv + kk * 256 + 128 + 4 * lane);
-    a.hi[0] = hi.x; a.hi[1] = hi.y; a.hi[2] = hi.z; a.hi[3] = hi.w;
-    a.lo[0] = lo.x; a.lo[1] = lo.y; a.lo[2] = lo.z; a.lo[3] = lo.w;
-  } else {
-    const float4 x = *reinterpret_cast<const float4*>(kv + kk * 128 + 4 * lane);
-    split_tf32(x.x, a.hi[0], a.lo[0]);
-    split_tf32(x.y, a.hi[1], a.lo[1]);
-    split_tf32(x.z, a.hi[2], a.lo[2]);
-    split_tf32(x.w, a.hi[3], a.lo[3]);
-  }
-}
-
-// sᵀ = k qᵀ (or dpᵀ = v dOᵀ) of the warp's 16 keys and a tile's BQ rows:
-// A from the warp's K (V) fragments, B (n = q rows, k = head dim) from the
-// q (dO) planes (`load_b_plane_nk`). Two partial sums over the head dim.
-template <int D, int BQ, bool PLANES>
-__device__ __forceinline__ void keys_by_rows(float (&out)[BQ / 8][4], const float* kv,
-                                             const float* plane, int lane) {
-  const int2 even = nk_offsets(lane, 0), odd = nk_offsets(lane, 1);
-  float part[BQ / 8][4];
-#pragma unroll
-  for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[n][e] = part[n][e] = 0.f;
-  auto step = [&](int kk) {  // head-dim columns 8 kk .. 8 kk + 15
-    Frag<4> a0, a1;
-    load_kv_frag<PLANES>(a0, kv, kk, lane);
-    load_kv_frag<PLANES>(a1, kv, kk + 1, lane);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-      const float* blk = plane + ((n * (D / 8) + kk) << 6);
-      Frag<2> b;
-      load_b_plane_nk<BQ * D>(b, blk, even);
-      mma3(out[n], a0, b);
-      load_b_plane_nk<BQ * D>(b, blk + 64, odd);  // the next 8 columns' block
-      mma3(part[n], a1, b);
-    }
-  };
-#pragma unroll
-  for (int kk = 0; kk < D / 8; kk += 2) step(kk);
-#pragma unroll
-  for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[n][e] += part[n][e];
-}
-
-// acc += c M over the tile's BQ rows (dv += pᵀ dO, dk += dsᵀ q): A from the
-// C tile c (keys by rows, k permuted), B (k = rows, n = head dim) from the
-// planes of M (`load_b_plane_kn`); each 8-column tile summed from zero.
-template <int D, int BQ>
-__device__ __forceinline__ void rows_by_cols(float (&acc)[D / 8][4],
-                                             const float (&c)[BQ / 8][4], const float* plane,
-                                             int lane) {
-  const float* lane_even = plane + kn_offset(lane, 0);  // rows 2t, 2t + 1 of column g
-  const float* lane_odd = plane + kn_offset(lane, 1);
-  Frag<4> a[BQ / 8];
-#pragma unroll
-  for (int kc = 0; kc < BQ / 8; ++kc) c_to_a_tf32(a[kc], c[kc]);
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    float tile[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kc = 0; kc < BQ / 8; ++kc) {
-      Frag<2> b;
-      load_b_plane_kn<BQ * D>(b, (j & 1 ? lane_odd : lane_even) + ((kc * (D / 8) + j) << 6));
-      mma3(tile, a[kc], b);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] += tile[e];
-  }
-}
-
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(DkvF32Layout<D>::THREADS, 1)
 bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -291,15 +145,10 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   if (warp >= L::CW) {
-    // Producer warpgroup. A warp step covers one tensor's 8 rows x 32
-    // columns: lane (rp, cg) = (lane & 3, lane >> 2) loads rows 2 rp and
-    // 2 rp + 1 at columns 4 cg .. 4 cg + 3 and stores each column's hi
-    // pair and lo pair where `swz` puts it.
+    // Producer warpgroup: q and dO split into the stage's planes
+    // (`store_b_planes`), then the tile's lse (times log2 e) and delta.
     if constexpr (L::HAND_OVER) reg_dealloc<L::PRODUCER_REGS>();
     const int pw = warp - L::CW, pt = threadIdx.x - 32 * L::CW;
-    const int rp = lane & 3, cg = lane >> 2;
-    constexpr int GROUPS = (BQ / 8) * (D / 32);  // steps per tensor
-    constexpr int PER = 2 * GROUPS / 4;          // steps per warp and tile
     const float* lse_bh = lse + (long)bh * S;
     const float* delta_bh = delta + (long)bh * S;
     for (int j = 0; j < ntiles; ++j) {
@@ -307,31 +156,7 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
       float* stage = ring + s * L::STAGE;
       const int q0 = qstart + j * BQ;
-#pragma unroll 2
-      for (int i = 0; i < PER; ++i) {
-        const int w = pw + 4 * i;
-        const int x = w / GROUPS, kc = (w % GROUPS) / (D / 32), cc = w % (D / 32);
-        const int r = 8 * kc + 2 * rp, c0 = 32 * cc + 4 * cg;
-        const float* src = (x ? dout : q) + off + c0;
-        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4 v0 =
-            q0 + r < S ? __ldg(reinterpret_cast<const float4*>(src + (long)(q0 + r) * rs)) : zero;
-        const float4 v1 = q0 + r + 1 < S
-                              ? __ldg(reinterpret_cast<const float4*>(src + (long)(q0 + r + 1) * rs))
-                              : zero;
-        const float a0[4] = {v0.x, v0.y, v0.z, v0.w}, a1[4] = {v1.x, v1.y, v1.z, v1.w};
-        // Rows r, r + 1 of block (kc, c0 / 8), hi plane.
-        float* blk = stage + x * PLANE + ((kc * (D / 8) + (c0 >> 3)) << 6) + (r & 7);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float* at = blk + 8 * swz((c0 & 7) + e, c0 >> 3);
-          uint32_t h0, l0, h1, l1;
-          split_tf32(a0[e], h0, l0);
-          split_tf32(a1[e], h1, l1);
-          *reinterpret_cast<uint2*>(at) = make_uint2(h0, h1);
-          *reinterpret_cast<uint2*>(at + BQ * D) = make_uint2(l0, l1);
-        }
-      }
+      store_b_planes<BQ, D, true>(stage, q + off, dout + off, q0, S, rs, pw, lane);
       if (pt < BQ) {
         const bool in = q0 + pt < S;
         stage[2 * PLANE + pt] = in ? lse_bh[q0 + pt] * kLog2e : 0.f;
@@ -352,7 +177,7 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int key_lo = kbase + (lane >> 2), key_hi = key_lo + 8;
   float* kv = smem + warp * L::KV_WARP;
   float* hand = smem + L::HAND_OFF + group * L::HAND;
-  stage_kv<D, L::KV_PLANES>(kv, (role ? v : k) + off, kbase, S, rs, lane);
+  stage_a_planes<D, L::KV_PLANES>(kv, (role ? v : k) + off, kbase, S, rs, lane);
   __syncwarp();
 
   float acc[D / 8][4];
@@ -371,7 +196,9 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* c_lse = stage + 2 * PLANE;
       const float* c_delta = c_lse + BQ;
       float c[BQ / 8][4];
-      keys_by_rows<D, BQ, L::KV_PLANES>(c, kv, stage + role * PLANE, lane);
+      mma3_nk<D, BQ, true>(
+          c, [&](int kk, Frag<4>& a) { load_a_plane<L::KV_PLANES>(a, kv, kk, lane); },
+          stage + role * PLANE, lane);
       if (role == 0) {
         const bool edge = (q0 + BQ > S) || (CAUSAL && q0 < kbase + 15);
 #pragma unroll
@@ -411,7 +238,10 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         // comes.
         if (it + 1 < ntiles) named_bar_arrive(bar_empty, 64);
       }
-      rows_by_cols<D, BQ>(acc, c, stage + (1 - role) * PLANE, lane);
+      Frag<4> a[BQ / 8];
+#pragma unroll
+      for (int kc = 0; kc < BQ / 8; ++kc) c_to_a_tf32(a[kc], c[kc]);
+      mma3_kn<BQ, D, D / 8, true>(acc, a, stage + (1 - role) * PLANE, 0, lane);
     }
     mbar_arrive(&empty[s]);
   }

@@ -34,17 +34,18 @@ SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
            "flash_fwd_fp32.cu", "flash_bwd_dq_fp32.cu", "flash_bwd_dkv_fp32.cu")
 HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fp32.cuh")
 # How each source computes. The wgmma+tma sources hold the bf16 and fp16
-# instantiations of each kernel, the mma.sync-3xtf32 ones the fp32 kernels
-# (3xTF32 products on mma.sync, flash_fp32.cuh, operands split as they
-# are loaded); mma.sync-3xtf32-ring is the fp32 dk/dv kernel's: q and dO
-# split once into fragment-ordered planes by a producer warpgroup and
-# streamed through an mbarrier ring to dk and dv partner warps.
+# instantiations of each kernel; the fp32 kernels run 3xTF32 products on
+# mma.sync (flash_fp32.cuh): mma.sync-3xtf32 (the forward) splits operands
+# as it loads them; mma.sync-3xtf32-ring (dq and dk/dv) splits each
+# operand element once into fragment-ordered planes, the streamed one (K
+# and V for dq, q and dO for dk/dv) by a producer warpgroup through an
+# mbarrier ring, for partner warps that share their tiles by named barriers.
 DESIGN = {
     "flash_fwd.cu": "wgmma+tma",
     "flash_bwd_dq.cu": "wgmma+tma",
     "flash_bwd_dkv.cu": "wgmma+tma",
     "flash_fwd_fp32.cu": "mma.sync-3xtf32",
-    "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32",
+    "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32-ring",
     "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
 }
 # The SASS instructions every kernel instantiation of a design must show
