@@ -12,10 +12,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             and spills) and warnings and, per library, the instructions its
             design must show in its SASS (cuobjdump): HGMMA (wgmma) and
             UTMALDG (TMA load) for the "wgmma+tma" sources, which hold the
-            bf16 and the fp16 instantiations, HMMA on TF32 (mma.sync) for
-            the "mma.sync-3xtf32" fp32 forward source, and HMMA on TF32
-            with SYNCS (the mbarrier ring) for the fp32 dq and dk/dv
-            sources, "mma.sync-3xtf32-ring" (kernels.DESIGN_SASS); and the
+            bf16 and the fp16 instantiations, and HMMA on TF32 (mma.sync)
+            with SYNCS (the mbarrier ring) for the fp32 sources, the
+            forward's "mma.sync-3xtf32-stream" and dq's and dk/dv's
+            "mma.sync-3xtf32-ring" (kernels.DESIGN_SASS); and the
             same per kernel instantiation, with the count of each type's. Any
             instantiation without its design's instructions, or any spill,
             fails the run.

@@ -35,7 +35,7 @@ def _inputs(shape, seed, dtype=torch.bfloat16):
 # (1, 64, 1, 64) and (2, 100, 3, 128): shorter than one 128-row q tile;
 # (1, 640, 2, 128): five q tiles, so one of dq's tile pairs is a tile with
 # itself; (4, 1000, 40, 64): more (batch, head)s than SMs, ragged. Head_dim
-# 256 (64-key forward tiles, 32-key dq tiles, dk/dv split over D):
+# 256 (32-key dq tiles, dk/dv split over D in the 2-byte kernels):
 # (1, 200, 2, 256) and (2, 333, 3, 256) ragged, (1, 64, 1, 256) one key
 # tile, (1, 640, 2, 256) five q tiles. (4097, 32, 16, 64): 65552 (batch,
 # head)s, more than a grid's y dimension holds. Each in bf16 and fp16 (the
@@ -58,13 +58,28 @@ def _inputs(shape, seed, dtype=torch.bfloat16):
 # 8 rows (its second pair has none) and 3 key tiles, the last half used;
 # (3, 97, 2, 64), a last q tile of 33 rows (one pair with one row, one with
 # none) and 4 key tiles, the last of one key.
+# The fp32 forward gives each 32 q rows a group of D / 64 warps, each warp 64
+# head-dim columns as two m16 tiles, so a block holds 256 rows at D = 64,
+# 128 at D = 128 and 64 at D = 256, and streams 16-key tiles through a ring
+# of 4, 3 or 2 stages: (1, 333, 2, 64) ends in a block of 77 rows (a group
+# with 13 rows, its second m16 tile empty, and five groups with none) and 21
+# key tiles; (1, 129, 2, 128) a block of one row; (2, 1000, 4, 256) a block
+# of 40 rows (its second group has 8) and 63 key tiles. New for it:
+# (1, 144, 2, 128), a last block of 16 rows, so one group's second m16 tile
+# and three whole groups are empty, over 9 key tiles (the 3-stage ring
+# wraps exactly); (2, 300, 3, 64), past one 256-row block with a ragged end
+# of 44 rows (a group of 12); (1, 208, 2, 256), 13 key tiles, an odd count
+# through the 2-stage ring; (1, 272, 2, 128), 17 key tiles through the
+# 3-stage ring and a last block of 16 rows.
 @pytest.mark.parametrize("shape", [(2, 256, 4, 128), (1, 333, 2, 64), (1, 129, 2, 128),
                                    (2, 384, 3, 128), (1, 200, 2, 64), (1, 64, 1, 64),
                                    (2, 100, 3, 128), (1, 640, 2, 128), (4, 1000, 40, 64),
                                    (1, 200, 2, 256), (2, 333, 3, 256), (1, 64, 1, 256),
                                    (1, 640, 2, 256), (4097, 32, 16, 64), (1, 1000, 2, 128),
                                    (2, 1000, 4, 256), (1, 45, 2, 128), (1, 17, 1, 256),
-                                   (2, 15, 3, 128), (1, 40, 2, 256), (3, 97, 2, 64)])
+                                   (2, 15, 3, 128), (1, 40, 2, 256), (3, 97, 2, 64),
+                                   (1, 144, 2, 128), (2, 300, 3, 64), (1, 208, 2, 256),
+                                   (1, 272, 2, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_kernels_match_plain(card, shape, causal, dtype):
@@ -128,6 +143,20 @@ def test_dkv_fp32_is_deterministic(card, shape, causal):
     delta = flash.row_delta(do, out)
     first = flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     second = flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 12, 128), (2, 1000, 4, 256)],
+                         ids=["d128", "d256"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_fp32_is_deterministic(card, shape, causal):
+    """The fp32 forward uses no atomics and each group of warps adds its
+    partial scores in one fixed order, so two launches agree bit for bit in
+    out and lse; a difference is a race in its ring or its partial-score
+    exchange."""
+    q, k, v, _ = _inputs(shape, 6, torch.float32)
+    first = flash.flash_fwd(q, k, v, causal)
+    second = flash.flash_fwd(q, k, v, causal)
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 

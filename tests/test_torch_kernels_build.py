@@ -52,22 +52,34 @@ def test_tag_ignores_unlisted_files(csrc_copy):
 
 # What a source of each design must contain: for wgmma+tma its Hopper
 # helpers, TMA loads, wgmma products and the consumers' register hand-over;
-# for mma.sync-3xtf32 the fp32 helpers, the 3xTF32 product and cp.async
-# tile copies; for mma.sync-3xtf32-ring the shared split-once helpers of
-# flash_fp32.cuh (the producer's split into B planes, `store_b_planes` or
-# its step `store_b_step`; a warp's A planes; the 3xTF32 products that read
-# the planes; the split of a computed tile), the mbarrier ring,
-# the partner warps' named barriers and the register hand-over.
+# for mma.sync-3xtf32-ring the shared split-once helpers of flash_fp32.cuh
+# (the producer's split into B planes, `store_b_planes` or its step
+# `store_b_step`; a warp's A planes; the 3xTF32 products that read the
+# planes; the split of a computed tile), the mbarrier ring, the partner
+# warps' named barriers and the register hand-over; for
+# mma.sync-3xtf32-stream the 3xTF32 product, q staged once in A planes, K
+# and V copied by cp.async into an mbarrier ring, the group's named
+# barriers and the register hand-over.
 DESIGN_REQUIRES = {
     "wgmma+tma": ('#include "sm90_common.cuh"', "tma_load_4d", "wgmma_", "reg_alloc"),
-    "mma.sync-3xtf32": ('#include "flash_fp32.cuh"', "mma3(", "load_rows_f32", "cp_wait"),
     "mma.sync-3xtf32-ring": ('#include "flash_fp32.cuh"', '#include "sm90_common.cuh"',
                              "store_b_", "stage_a_planes<", "mma3_nk<", "mma3_kn<",
                              "c_to_a_tf32(", "mbar_wait(", "named_bar_sync(", "reg_alloc"),
+    "mma.sync-3xtf32-stream": ('#include "flash_fp32.cuh"', '#include "sm90_common.cuh"',
+                               "mma3(", "stage_a_planes<", "c_to_a_tf32(", "cp_async_arrive(",
+                               "mbar_wait(", "named_bar_sync(", "reg_alloc"),
 }
 # The helpers that split an operand as they load it from a row-major tile:
 # the ring design splits each element once instead.
 SPLIT_AS_LOADED = ("load_a(", "load_b_nk(", "load_b_kn(", "mma3_add(", "load_rows_f32", "cp_wait")
+# What each fp32 design must not contain: the ring none of the split-as-loaded
+# helpers; the stream design splits K and V as it reads them, but loads q
+# once per block (no per-tile A loads) and waits on no cp.async group.
+DESIGN_FORBIDS = {
+    "wgmma+tma": (),
+    "mma.sync-3xtf32-ring": SPLIT_AS_LOADED,
+    "mma.sync-3xtf32-stream": ("load_a(", "load_rows_f32", "cp_wait"),
+}
 
 
 @pytest.mark.parametrize("src", kernels.SOURCES)
@@ -85,21 +97,21 @@ def test_each_source_names_its_design(src):
     else:
         # The fp32 kernels run no product outside the 3xTF32 split.
         assert "wgmma" not in text and "mma_tf32(" not in text and "_fp32(" in text
-    if design == "mma.sync-3xtf32-ring":
-        assert not [h for h in SPLIT_AS_LOADED if h in text]
+    assert not [h for h in DESIGN_FORBIDS[design] if h in text]
     assert set(kernels.DESIGN) == set(kernels.SOURCES)
-    assert set(kernels.DESIGN.values()) == set(kernels.DESIGN_SASS)
+    assert set(kernels.DESIGN.values()) == set(kernels.DESIGN_SASS) == set(DESIGN_REQUIRES)
 
 
-RING_SOURCES = [src for src, d in kernels.DESIGN.items() if d == "mma.sync-3xtf32-ring"]
+RING_SOURCES = [src for src, d in kernels.DESIGN.items()
+                if d in ("mma.sync-3xtf32-ring", "mma.sync-3xtf32-stream")]
 
 
 @pytest.mark.parametrize("src", RING_SOURCES)
 def test_ring_sources_meet_the_block_once(src):
-    """A ring kernel's block meets at one __syncthreads, the one after the
-    mbarriers' initialisation: in their loops the producer and the
-    consumers wait on the ring's mbarriers and the partners on their named
-    barriers alone."""
+    """A ring kernel's block (the ring and the stream designs) meets at one
+    __syncthreads, the one after the mbarriers' initialisation: in their
+    loops the producer and the consumers wait on the ring's mbarriers and
+    the partners or groups on their named barriers alone."""
     code = "\n".join(line.split("//", 1)[0] for line in
                      (kernels.CSRC / src).read_text().splitlines())
     assert code.count("__syncthreads()") == 1
@@ -107,14 +119,15 @@ def test_ring_sources_meet_the_block_once(src):
 
 
 def test_fp32_designs():
-    """The fp32 forward keeps the split-as-loaded design; dq and dk/dv are
-    the ring design, held to its TF32 products and its mbarriers."""
+    """The fp32 forward is the stream design; dq and dk/dv are the ring
+    design; both are held to their TF32 products and their mbarriers."""
     assert {src: d for src, d in kernels.DESIGN.items() if src.endswith("_fp32.cu")} == {
-        "flash_fwd_fp32.cu": "mma.sync-3xtf32",
+        "flash_fwd_fp32.cu": "mma.sync-3xtf32-stream",
         "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32-ring",
         "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
     }
     assert kernels.DESIGN_SASS["mma.sync-3xtf32-ring"] == ("HMMA.TF32", "SYNCS")
+    assert kernels.DESIGN_SASS["mma.sync-3xtf32-stream"] == ("HMMA.TF32", "SYNCS")
 
 
 def test_every_entry_point_has_a_library():
@@ -177,15 +190,18 @@ def test_kernel_sass_counts_splits_by_function(monkeypatch, tmp_path):
 def test_missing_sass_holds_each_design_to_its_instructions():
     tf32 = {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 24}
     wgmma = {"HGMMA": 8, "UTMALDG": 4, "HMMA.TF32": 0}
-    assert kernels.missing_sass({"flash_fwd_fp32.cu": {"_ZN5flash14fwd_f32_kernelILi64E": tf32},
+    fwd = "_ZN5flash14fwd_f32_kernelILi64E"
+    assert kernels.missing_sass({"flash_fwd_fp32.cu": {fwd: dict(tf32, SYNCS=6)},
                                  "flash_fwd.cu": {"_ZN5flash10fwd_kernelI6__half": wgmma}}) == {}
-    # The ring design needs its mbarriers beside its TF32 products.
+    # The ring and stream designs need their mbarriers beside their TF32
+    # products.
     dkv = "_ZN5flash18bwd_dkv_f32_kernelI"
     ring = dict(tf32, SYNCS=10)
     assert kernels.missing_sass({"flash_bwd_dkv_fp32.cu": {dkv: ring}}) == {}
     no_ring = dict(tf32, SYNCS=0)
-    assert kernels.missing_sass({"flash_bwd_dkv_fp32.cu": {dkv: no_ring}}) == {
-        "flash_bwd_dkv_fp32.cu": [dkv]}
+    assert kernels.missing_sass({"flash_bwd_dkv_fp32.cu": {dkv: no_ring},
+                                 "flash_fwd_fp32.cu": {fwd: no_ring}}) == {
+        "flash_bwd_dkv_fp32.cu": [dkv], "flash_fwd_fp32.cu": [fwd]}
     # A wgmma kernel in an fp32 source, or a source without kernels, fails.
     assert kernels.missing_sass({"flash_fwd_fp32.cu": {"_ZN5flash14fwd_f32_kernelI": wgmma},
                                  "flash_fwd.cu": {}}) == {

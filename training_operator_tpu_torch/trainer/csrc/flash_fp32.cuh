@@ -1,9 +1,12 @@
 // Shared building blocks of the fp32 flash-attention kernels (sm_90a):
 // the 3xTF32 product on `mma.sync` and the tf32 split, used by all three;
-// for the forward, fragment loads that split each operand as they load it
-// from a row-major shared tile, filled by `cp.async` copies; for the dq and
-// dk/dv kernels (the "ring" design), operands split once into hi and lo
-// planes in fragment order, and the products that read those planes.
+// cp.async copies that complete on an mbarrier; a warp's resident rows in
+// A-fragment order (A planes); and, for the dq and dk/dv kernels (the
+// "ring" design), operands split once into hi and lo B planes in fragment
+// order, and the products that read those planes. The forward (the
+// "stream" design) reads K and V raw from padded row-major tiles and splits
+// each B fragment as it loads it (`load_b_nk`, and 16-byte V loads in its
+// source).
 //
 // Layout contract with trainer/flash.py: q, k, v, out, dO, dq, dk, dv are
 // contiguous fp32 [B, S, H, D] (row stride H*D elements); lse and delta are
@@ -27,32 +30,22 @@
 // A is a C tile (p v, ds k, pᵀ dO, dsᵀ q) reads its k axis permuted: A
 // column t is C column 2t and A column t+4 is C column 2t+1, so a lane's
 // own c0..c3 are its A fragment, and B rows t and t+4 are read from rows 2t
-// and 2t+1 of the shared tile (`load_b_kn`; the planes store them side by
-// side, `load_b_plane_kn`).
+// and 2t+1 of the operand (the planes store them side by side,
+// `load_b_plane_kn`).
 //
 // Accumulation: mma adds into its fp32 accumulator with truncation, so a
 // sum carried through every product of a long loop (o over the keys, dq
 // over the keys, dk and dv over the queries: ~1,500 mma steps at S = 4096)
 // drifts toward zero by up to an ulp a step. Each key or query tile's
-// product is therefore summed from zero in registers of its own
-// (`mma3_tile`, `mma3_kn`: at most 24 steps) and added to the running sum
+// product is therefore summed from zero in registers of its own (the
+// forward's p v, `mma3_kn`: at most 24 steps) and added to the running sum
 // with a rounded fp32 add. The tile's A fragments are all held for it,
 // which sets the tile sizes where registers are short.
-//
-// The forward's shared tiles are row-major with a row stride of D + 4
-// floats: 4 banks apart, so the eight rows times four columns of an A or B
-// fragment (`load_a`, `load_b_nk`) and the 2t / 2t+1 rows times eight
-// columns of a permuted B fragment (`load_b_kn`) fall on 32 distinct banks.
 #pragma once
 
 #include "flash_common.cuh"
 
 namespace flash {
-
-template <int D>
-struct F32Tile {
-  static constexpr int LD = D + 4;  // floats per shared row
-};
 
 // Round to tf32 (10 mantissa bits), to nearest with ties away from zero:
 // the bits below the 13 kept are added in and cut off. Integer operations,
@@ -88,16 +81,6 @@ __device__ __forceinline__ void mma3(float c[4], const Frag<4>& a, const Frag<2>
   mma_tf32(c, a.hi, b.hi);
 }
 
-// A fragment of rows r0..r0+15, columns k0..k0+7 of a row-major tile.
-__device__ __forceinline__ void load_a(Frag<4>& a, const float* s, int ld, int r0, int k0,
-                                       int lane) {
-  const float* p = s + (r0 + (lane >> 2)) * ld + k0 + (lane & 3);
-  split_tf32(p[0], a.hi[0], a.lo[0]);
-  split_tf32(p[8 * ld], a.hi[1], a.lo[1]);
-  split_tf32(p[4], a.hi[2], a.lo[2]);
-  split_tf32(p[8 * ld + 4], a.hi[3], a.lo[3]);
-}
-
 // B fragment of n n0..n0+7, k k0..k0+7 where B[k][n] = M[n][k]: M is
 // row-major with the product's n axis as rows (K in q kᵀ).
 __device__ __forceinline__ void load_b_nk(Frag<2>& b, const float* m, int ld, int n0, int k0,
@@ -105,15 +88,6 @@ __device__ __forceinline__ void load_b_nk(Frag<2>& b, const float* m, int ld, in
   const float* p = m + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
   split_tf32(p[0], b.hi[0], b.lo[0]);
   split_tf32(p[4], b.hi[1], b.lo[1]);
-}
-
-// B fragment where B[k][n] = M[k][n] (V in p v), k in the permuted order
-// of `c_to_a_tf32`: B rows t and t+4 are M rows k0+2t and k0+2t+1.
-__device__ __forceinline__ void load_b_kn(Frag<2>& b, const float* m, int ld, int k0, int n0,
-                                          int lane) {
-  const float* p = m + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
-  split_tf32(p[0], b.hi[0], b.lo[0]);
-  split_tf32(p[ld], b.hi[1], b.lo[1]);
 }
 
 // The A fragment of one 8-wide k chunk from the C tile of the same 8
@@ -125,21 +99,6 @@ __device__ __forceinline__ void c_to_a_tf32(Frag<4>& a, const float c[4]) {
   split_tf32(c[3], a.hi[3], a.lo[3]);
 }
 
-// The product of one tile over its K8 k chunks (A fragments from
-// `c_to_a_tf32`, B from M's rows 0 .. 8 K8 - 1 at columns n0 .. n0 + 7,
-// `load_b_kn`), summed from zero in registers of its own.
-template <int K8>
-__device__ __forceinline__ void mma3_tile(float tile[4], const Frag<4> (&a)[K8],
-                                          const float* m, int ld, int n0, int lane) {
-  tile[0] = tile[1] = tile[2] = tile[3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < K8; ++kc) {
-    Frag<2> b;
-    load_b_kn(b, m, ld, kc * 8, n0, lane);
-    mma3(tile, a[kc], b);
-  }
-}
-
 // An asynchronous 16-byte copy to shared memory; `valid` false writes zeros
 // and reads nothing.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -147,35 +106,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
 // Arrives on the mbarrier `bar` once this thread's earlier cp.async copies
 // have landed (one of the barrier's expected arrivals; no commit or wait
 // group).
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_addr(bar))
                : "memory");
-}
-
-// Waits until at most N committed copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Starts copying rows row0..row0+R-1 of one (batch, head) of a [B, S, H, D]
-// fp32 tensor into a padded shared tile, 16 bytes per thread and step; rows
-// at or past seq_len become zeros.
-template <int R, int D>
-__device__ __forceinline__ void load_rows_f32(float* smem, const float* base, int row0,
-                                              int seq_len, long row_stride) {
-  constexpr int kChunks = D / 4;
-  constexpr int LD = F32Tile<D>::LD;
-  for (int i = threadIdx.x; i < R * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool in = row0 + r < seq_len;
-    cp_async16(smem + r * LD + c, base + (long)(in ? row0 + r : 0) * row_stride + c, in);
-  }
 }
 
 // ---------------------------------------------------------------- split planes

@@ -35,27 +35,29 @@ SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
 HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fp32.cuh")
 # How each source computes. The wgmma+tma sources hold the bf16 and fp16
 # instantiations of each kernel; the fp32 kernels run 3xTF32 products on
-# mma.sync (flash_fp32.cuh): mma.sync-3xtf32 (the forward) splits operands
-# as it loads them; mma.sync-3xtf32-ring (dq and dk/dv) splits each
+# mma.sync (flash_fp32.cuh): mma.sync-3xtf32-ring (dq and dk/dv) splits each
 # operand element once into fragment-ordered planes, the streamed one (K
 # and V for dq, q and dO for dk/dv) by a producer warpgroup through an
-# mbarrier ring, for partner warps that share their tiles by named barriers.
+# mbarrier ring, for partner warps that share their tiles by named barriers;
+# mma.sync-3xtf32-stream (the forward) stages q once per block in A planes
+# and streams K and V raw through an mbarrier ring filled by cp.async, split
+# as read, for groups of warps that share partial scores by named barriers.
 DESIGN = {
     "flash_fwd.cu": "wgmma+tma",
     "flash_bwd_dq.cu": "wgmma+tma",
     "flash_bwd_dkv.cu": "wgmma+tma",
-    "flash_fwd_fp32.cu": "mma.sync-3xtf32",
+    "flash_fwd_fp32.cu": "mma.sync-3xtf32-stream",
     "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32-ring",
     "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
 }
 # The SASS instructions every kernel instantiation of a design must show
 # (`kernel_sass_counts`): Hopper's tensor-core wgmma (HGMMA) and TMA loads
-# (UTMALDG), or mma.sync on TF32 operands, with the ring's mbarrier
-# operations (SYNCS) where the design has one.
+# (UTMALDG), or mma.sync on TF32 operands with the ring's mbarrier
+# operations (SYNCS).
 DESIGN_SASS = {
     "wgmma+tma": ("HGMMA", "UTMALDG"),
-    "mma.sync-3xtf32": ("HMMA.TF32",),
     "mma.sync-3xtf32-ring": ("HMMA.TF32", "SYNCS"),
+    "mma.sync-3xtf32-stream": ("HMMA.TF32", "SYNCS"),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
