@@ -173,6 +173,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             Prints ms/step, tokens/s, MFU against the bf16 peak as every
             phase (so labelled), peak memory (reset after phase 13) and the
             card.
+15. placer   the placement engine's scheduling cycle on the card
+            (scheduler/packer.py TPUPacker, the "torch" arm, on the card
+            unless told otherwise) against its "numpy" arm on the host, each
+            with its own requests and its own snapshot of the same usage:
+            (a) the solver bench's 10k-node block (burst.scale_requests:
+            2500 slices of 4x4, 2000 gangs of 1, 2 or 4 hosts drawn by
+            random.Random(7), created 1 ms apart, placed at t=10000 s): one
+            cold place() and one warm place() on a fresh snapshot of the same
+            inventory; prints the snapshot build s, the card's place() ms,
+            rounds and solve ms, and the numpy arm's host ms. (b) bench.py's
+            burst pool (burst.burst_pool: 48 slices of 4x4, 32 GPU nodes of
+            8 in NVLink domains of 4, 16 CPU nodes of 64 cores) and
+            build_workload(1000, seed=0), replayed by burst.replay until all
+            are admitted or 400 cycles; prints the cycles, the gangs
+            admitted, place() ms per cycle (median, p90, max, first) on the
+            card and on the host, the rounds and the solve's share of
+            place(). Any placement that differs from the numpy arm's, field
+            by field (assignments, slices_used, reserved_nodes, score), in
+            any cycle fails the run. The placer runs no kernel of its own:
+            `solve_batch` is torch ops, as JAX's `_solve_batch` is XLA, so
+            the `kernels` line does not change.
 
 The last lines are the `kernels` JSON line, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. The `kernels` line has a row per
@@ -223,7 +244,8 @@ inputs:
   and outputs (2^-9 relative each); on an H100 the gap reads 3.1e-3 of
   the largest logit after the 60 steps (3.3e-3 on the CPU, 5.0e-3 at the
   init).
-- solver: equal, bit for bit: the rounds are integer arithmetic.
+- solver, placer: equal, bit for bit: the rounds are integer arithmetic,
+  the placer's ordering and stitching the same Python on both arms.
 - mesh: 1e-5 relative. A world of one runs the unsharded path's products
   and kernels on the same values; only the vocab-parallel logsumexp (max,
   exp, sum and log written out) and the copies of the size-1 collectives
@@ -1025,6 +1047,80 @@ def run_d256(card) -> dict:
     return launches
 
 
+def _ms_summary(values) -> str:
+    """median, p90, max and first of per-cycle ms."""
+    import statistics
+
+    ordered = sorted(values)
+    p90 = ordered[min(len(ordered) - 1, int(0.9 * len(ordered)))]
+    return (f"median {statistics.median(ordered):.4f}, p90 {p90:.4f}, max {ordered[-1]:.4f}, "
+            f"first {values[0]:.4f}")
+
+
+def run_placer(card) -> None:
+    """Phase 15; see the module docstring. Raises on any difference between
+    the card's placements and the numpy arm's."""
+    import statistics
+
+    from training_operator_tpu_torch.scheduler import burst, packer, snapshot
+
+    # (a) the 10k-node block: one cold place(), then one warm one on a fresh
+    # snapshot of the same inventory; the numpy arm on a copy of each.
+    nodes = burst.scale_pool()
+    card_p, host_p = packer.TPUPacker(), packer.TPUPacker(kernel="numpy")
+    card_reqs, host_reqs = burst.scale_requests(), burst.scale_requests()
+    for label in ("cold", "warm"):
+        t = time.perf_counter()
+        snap = snapshot.ClusterSnapshot(nodes, inventory_gen=1)
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got = card_p.place(card_reqs, snap, now=10_000.0)
+        card_ms = (time.perf_counter() - t) * 1e3
+        stats = dict(card_p.last_solve_stats)
+        t = time.perf_counter()
+        want = host_p.place(host_reqs, snapshot.ClusterSnapshot(nodes, inventory_gen=1),
+                            now=10_000.0)
+        host_ms = (time.perf_counter() - t) * 1e3
+        bad = burst.placement_diff(want, got)
+        if bad:
+            raise AssertionError(f"placer: the 10k-node block's {label} place() on the card "
+                                 f"differs from the numpy arm on {len(bad)} gangs: {bad[:3]}")
+        admitted = sum(p is not None for p in got.values())
+        if not admitted or stats.get("kernel") != "torch" or not stats.get("rounds"):
+            raise AssertionError(f"placer: the 10k-node block's {label} place() admitted "
+                                 f"{admitted} gangs with solve stats {stats}")
+        log(f"placer: 10k block {label}: {len(nodes)} nodes, {len(card_reqs)} gangs, "
+            f"{admitted} admitted (equal to the numpy arm's, field by field); snapshot build "
+            f"{build_s:.4f} s; place() {card_ms:.4f} ms on the card ({stats['rounds']:.0f} "
+            f"rounds, {stats['batch_items']:.0f} items, padded classes x candidates "
+            f"{stats['classes']:.0f} x {stats['candidates']:.0f}, solve {stats['solve_ms']:.4f} "
+            f"ms), numpy arm {host_ms:.4f} ms (host time, this machine's CPU); {card}")
+
+    # (b) the burst pool at bench.py's geometry, replayed cycle by cycle,
+    # the card's placements held to the numpy arm's in every cycle.
+    nodes = burst.burst_pool()
+    card_p = packer.TPUPacker()
+    card_p.prewarm(snapshot.ClusterSnapshot(nodes))
+    t = time.perf_counter()
+    out = burst.replay([card_p, packer.TPUPacker(kernel="numpy")], nodes,
+                       burst.build_workload(1000, 0), max_cycles=400)
+    wall = time.perf_counter() - t
+    if not out["admitted"] or not out["rounds"]:
+        raise AssertionError(f"placer: the burst admitted {out['admitted']} gangs in "
+                             f"{out['cycles']} cycles, {len(out['rounds'])} card solves")
+    card_ms, host_ms = out["place_ms"]
+    share = [sum(s) / sum(p) for s, p in zip(out["solve_ms"], out["place_ms"])]
+    log(f"placer: burst {out['gangs']} gangs on {len(nodes)} nodes: {out['cycles']} cycles "
+        f"(cap 400), {out['admitted']} admitted by t={out['end_t']:.0f} s of the "
+        f"replay's cycle model, placements equal to the numpy arm's in every cycle; "
+        f"{len(out['rounds'])} card solves, rounds median "
+        f"{statistics.median(out['rounds']):.0f}, max {max(out['rounds']):.0f}; {wall:.2f} s")
+    log(f"placer: burst place() ms per cycle, card: {_ms_summary(card_ms)}; solve share "
+        f"{share[0]:.4f}")
+    log(f"placer: burst place() ms per cycle, numpy arm (host time, this machine's CPU): "
+        f"{_ms_summary(host_ms)}; solve share {share[1]:.4f}; {card}")
+
+
 def run_fp32(card) -> dict:
     """Phase 14; see the module docstring. Raises on any failed check and
     returns the launch counts of its steps (all fp32)."""
@@ -1331,6 +1427,9 @@ def main() -> int:
 
     # 14. fp32
     fp32_launches = run_fp32(card)
+
+    # 15. placer
+    run_placer(card)
 
     # report
     sass = build["sass"]

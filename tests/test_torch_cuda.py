@@ -500,6 +500,28 @@ def test_solver_on_the_card_equals_numpy(card):
         assert got.dtype == np.int32 and np.array_equal(got, want)
 
 
+def test_placer_on_the_card_equals_numpy(card):
+    """TPUPacker on the card against its numpy arm: burst.replay of 200
+    jobs on 12 slices, 8 GPU nodes and 4 CPU nodes (placements equal in
+    every cycle, or replay raises), and a 400-slice cut of the 10k-node
+    block, cold and warm."""
+    from training_operator_tpu_torch.scheduler import burst, packer, snapshot
+
+    placer = packer.TPUPacker()
+    assert placer.device.type == "cuda"
+    out = burst.replay([placer, packer.TPUPacker(kernel="numpy")], burst.burst_pool(12, 8, 4),
+                       burst.build_workload(200, 0))
+    assert out["admitted"] > 150 and out["rounds"]
+    nodes = burst.scale_pool(400)
+    card_reqs, host_reqs = burst.scale_requests(320), burst.scale_requests(320)
+    host = packer.TPUPacker(kernel="numpy")
+    for _ in range(2):
+        got = placer.place(card_reqs, snapshot.ClusterSnapshot(nodes, inventory_gen=7), 1e4)
+        want = host.place(host_reqs, snapshot.ClusterSnapshot(nodes, inventory_gen=7), 1e4)
+        assert not burst.placement_diff(want, got)
+        assert placer.last_solve_stats["kernel"] == "torch"
+
+
 def test_bench_train_step_breakdown(card):
     """bench_train_step at a small size returns the phase breakdown, the
     executed-MFU estimate (remat on) and the first step's seconds."""
