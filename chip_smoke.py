@@ -194,6 +194,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             any cycle fails the run. The placer runs no kernel of its own:
             `solve_batch` is torch ops, as JAX's `_solve_batch` is XLA, so
             the `kernels` line does not change.
+16. operator bench.py's burst through the port's own operator
+            (burst.run_burst: the burst pool, build_workload(1000, seed=0)
+            made into JAXJobs, PyTorchJobs and TFJobs by burst.make_job,
+            DefaultScheduler, SimKubelet, OperatorManager with the three
+            controllers, GangScheduler with prewarm, min_solve_interval 0.25
+            s and incremental solving), once with TPUPacker() solving on the
+            card and once with its numpy arm. (a) With charge_solve_time
+            off: every job must succeed, and the card arm's records must
+            equal the numpy arm's (each PodGroup's placement, reserved
+            nodes, score and virtual admission time, each job's Running and
+            Succeeded times, the cycles and each cycle's trace record);
+            prints per arm the cycles, the makespan and the p50 and p90 of
+            schedule-to-running (virtual seconds), the solve cycle's wall
+            ms from the scheduler's trace (median, p90, max, first), the solve's
+            share of it and the wall seconds. (b) With charge_solve_time
+            on, as bench.run_burst runs: each solve's wall time moves the
+            virtual clock, so the arms are not compared; prints bench's
+            keys per arm. No kernel of the `kernels` line runs here.
 
 The last lines are the `kernels` JSON line, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. The `kernels` line has a row per
@@ -244,7 +262,7 @@ inputs:
   and outputs (2^-9 relative each); on an H100 the gap reads 3.1e-3 of
   the largest logit after the 60 steps (3.3e-3 on the CPU, 5.0e-3 at the
   init).
-- solver, placer: equal, bit for bit: the rounds are integer arithmetic,
+- solver, placer, operator: equal, bit for bit: the rounds are integer arithmetic,
   the placer's ordering and stitching the same Python on both arms.
 - mesh: 1e-5 relative. A world of one runs the unsharded path's products
   and kernels on the same values; only the vocab-parallel logsumexp (max,
@@ -1062,7 +1080,7 @@ def run_placer(card) -> None:
     the card's placements and the numpy arm's."""
     import statistics
 
-    from training_operator_tpu_torch.scheduler import burst, packer, snapshot
+    from training_operator_tpu_torch.scheduler import burst, packer
 
     # (a) the 10k-node block: one cold place(), then one warm one on a fresh
     # snapshot of the same inventory; the numpy arm on a copy of each.
@@ -1071,14 +1089,14 @@ def run_placer(card) -> None:
     card_reqs, host_reqs = burst.scale_requests(), burst.scale_requests()
     for label in ("cold", "warm"):
         t = time.perf_counter()
-        snap = snapshot.ClusterSnapshot(nodes, inventory_gen=1)
+        snap = burst.usage_snapshot(nodes, inventory_gen=1)
         build_s = time.perf_counter() - t
         t = time.perf_counter()
         got = card_p.place(card_reqs, snap, now=10_000.0)
         card_ms = (time.perf_counter() - t) * 1e3
         stats = dict(card_p.last_solve_stats)
         t = time.perf_counter()
-        want = host_p.place(host_reqs, snapshot.ClusterSnapshot(nodes, inventory_gen=1),
+        want = host_p.place(host_reqs, burst.usage_snapshot(nodes, inventory_gen=1),
                             now=10_000.0)
         host_ms = (time.perf_counter() - t) * 1e3
         bad = burst.placement_diff(want, got)
@@ -1100,7 +1118,7 @@ def run_placer(card) -> None:
     # the card's placements held to the numpy arm's in every cycle.
     nodes = burst.burst_pool()
     card_p = packer.TPUPacker()
-    card_p.prewarm(snapshot.ClusterSnapshot(nodes))
+    card_p.prewarm(burst.usage_snapshot(nodes))
     t = time.perf_counter()
     out = burst.replay([card_p, packer.TPUPacker(kernel="numpy")], nodes,
                        burst.build_workload(1000, 0), max_cycles=400)
@@ -1119,6 +1137,76 @@ def run_placer(card) -> None:
         f"{share[0]:.4f}")
     log(f"placer: burst place() ms per cycle, numpy arm (host time, this machine's CPU): "
         f"{_ms_summary(host_ms)}; solve share {share[1]:.4f}; {card}")
+
+
+def run_operator(card) -> None:
+    """Phase 16; see the module docstring. Raises on any difference between
+    the card arm's records and the numpy arm's, or on any job that does not
+    succeed."""
+    import statistics
+
+    import torch
+
+    from training_operator_tpu_torch.scheduler import burst, packer
+
+    specs = burst.build_workload(1000, 0)
+    arms = (("card", lambda: packer.TPUPacker()),
+            ("numpy arm", lambda: packer.TPUPacker(kernel="numpy")))
+
+    def run(make, charge):
+        placer = make()
+        out = burst.run_burst(specs, placer, charge_solve_time=charge)
+        missing = sorted(set(s[1] for s in specs) - set(out["succeeded"]))
+        if missing or len(out["admitted"]) != len(specs):
+            raise AssertionError(f"operator: {len(missing)} jobs did not succeed (first "
+                                 f"{missing[:3]}), {len(out['admitted'])} of {len(specs)} "
+                                 f"gangs admitted")
+        if placer.kernel == "torch":
+            torch.cuda.synchronize()
+            kernels = {r["solver"]["kernel"] for r in out["trace"] if "solver" in r}
+            if kernels != {"torch"} or placer.device.type != "cuda":
+                raise AssertionError(f"operator: the card arm solved with {kernels} on "
+                                     f"{placer.device}")
+        return out
+
+    # (a) parity: charge_solve_time off, so virtual time is a function of
+    # the placements alone and both arms must give the same records.
+    runs = {}
+    for label, make in arms:
+        out = runs[label] = run(make, False)
+        cycle_ms = [r["solve_wall_s"] * 1e3 for r in out["trace"]]
+        solve_ms = sum(r["solver"].get("solve_ms", 0.0) for r in out["trace"] if "solver" in r)
+        ordered = sorted(cycle_ms)
+        log(f"operator (a) {label}: {len(specs)} jobs, all succeeded; {out['cycles']} cycles, "
+            f"makespan {out['makespan_s']} s, schedule-to-running p50 {out['p50_s']} s, p90 "
+            f"{out['p90_s']} s (virtual); solve cycle (snapshot, requests, place()) ms "
+            f"median {statistics.median(ordered):.4f}, p90 "
+            f"{ordered[int(0.9 * (len(ordered) - 1))]:.4f}, max {ordered[-1]:.4f}, first "
+            f"{cycle_ms[0]:.4f}, the solve's share {solve_ms / sum(cycle_ms):.4f}; wall "
+            f"{out['bench_wall_s']:.2f} s; "
+            f"{card}")
+    want, got = runs["numpy arm"], runs["card"]
+    for key in ("admitted", "running", "succeeded", "cycles"):
+        if got[key] != want[key]:
+            bad = (sorted(k for k in set(got[key]) | set(want[key])
+                          if got[key].get(k) != want[key].get(k))[:3]
+                   if isinstance(want[key], dict) else [got[key], want[key]])
+            raise AssertionError(f"operator: the card arm's {key} differ from the numpy "
+                                 f"arm's: {bad}")
+    if burst.trace_records(got["trace"]) != burst.trace_records(want["trace"]):
+        raise AssertionError("operator: the card arm's solve cycles differ from the numpy "
+                             "arm's")
+    log(f"operator (a): the card arm equals the numpy arm: every PodGroup's placement, "
+        f"reserved nodes, score and admission time, every job's Running and Succeeded "
+        f"times, {got['cycles']} cycles")
+
+    # (b) bench's own setting: each solve's wall time charged to the clock.
+    keys = ("p50_s", "p90_s", "p99_s", "makespan_s", "solver_wall_s", "solver_cycles",
+            "solver_incremental_cycles", "bench_wall_s")
+    for label, make in arms:
+        out = run(make, True)
+        log(f"operator (b) {label}, charge_solve_time=True: "
+            f"{json.dumps({k: out[k] for k in keys})}; {card}")
 
 
 def run_fp32(card) -> dict:
@@ -1430,6 +1518,9 @@ def main() -> int:
 
     # 15. placer
     run_placer(card)
+
+    # 16. operator
+    run_operator(card)
 
     # report
     sass = build["sass"]

@@ -505,7 +505,7 @@ def test_placer_on_the_card_equals_numpy(card):
     jobs on 12 slices, 8 GPU nodes and 4 CPU nodes (placements equal in
     every cycle, or replay raises), and a 400-slice cut of the 10k-node
     block, cold and warm."""
-    from training_operator_tpu_torch.scheduler import burst, packer, snapshot
+    from training_operator_tpu_torch.scheduler import burst, packer
 
     placer = packer.TPUPacker()
     assert placer.device.type == "cuda"
@@ -516,10 +516,30 @@ def test_placer_on_the_card_equals_numpy(card):
     card_reqs, host_reqs = burst.scale_requests(320), burst.scale_requests(320)
     host = packer.TPUPacker(kernel="numpy")
     for _ in range(2):
-        got = placer.place(card_reqs, snapshot.ClusterSnapshot(nodes, inventory_gen=7), 1e4)
-        want = host.place(host_reqs, snapshot.ClusterSnapshot(nodes, inventory_gen=7), 1e4)
+        got = placer.place(card_reqs, burst.usage_snapshot(nodes, inventory_gen=7), 1e4)
+        want = host.place(host_reqs, burst.usage_snapshot(nodes, inventory_gen=7), 1e4)
         assert not burst.placement_diff(want, got)
         assert placer.last_solve_stats["kernel"] == "torch"
+
+
+def test_operator_burst_on_the_card_equals_numpy(card):
+    """A 100-job burst through the port's own operator (burst.run_burst on
+    8 slices, 4 GPU nodes and 2 CPU nodes, charge_solve_time off) with
+    TPUPacker solving on the card gives the numpy arm's records: every
+    PodGroup's admission, every job's Running and Succeeded times, the
+    cycles."""
+    from training_operator_tpu_torch.scheduler import burst, packer
+
+    specs = burst.build_workload(100, 0)
+    placer = packer.TPUPacker()
+    got = burst.run_burst(specs, placer, 8, 4, 2, charge_solve_time=False)
+    want = burst.run_burst(specs, packer.TPUPacker(kernel="numpy"), 8, 4, 2,
+                           charge_solve_time=False)
+    for key in ("admitted", "running", "succeeded", "cycles"):
+        assert got[key] == want[key], key
+    assert len(got["succeeded"]) == 100
+    assert {r["solver"]["kernel"] for r in got["trace"] if "solver" in r} == {"torch"}
+    assert placer.device.type == "cuda"
 
 
 def test_bench_train_step_breakdown(card):

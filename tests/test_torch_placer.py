@@ -40,37 +40,41 @@ from training_operator_tpu.controllers import OperatorManager, register_all
 from training_operator_tpu.scheduler import candidates as jcand
 from training_operator_tpu.scheduler import snapshot as jsnap
 from training_operator_tpu.scheduler.packer import TPUPacker as JaxPacker
-from training_operator_tpu_torch.scheduler import (
-    burst,
-    candidates,
-    inventory,
-    packer,
-    snapshot,
-)
+from training_operator_tpu_torch.api.jobs import ObjectMeta as PortObjectMeta
+from training_operator_tpu_torch.cluster import inventory
+from training_operator_tpu_torch.cluster import objects as pobj
+from training_operator_tpu_torch.scheduler import burst, candidates, packer, snapshot
 
 TPU = jinv.TPU_RESOURCE
 GPU = jinv.GPU_RESOURCE
 
 
-# -- conversions: JAX objects to the port's records ---------------------------
+# -- conversions: JAX objects to the port's ---------------------------------
 
 def port_node(n):
     acc = n.accelerator
-    return inventory.Node(
-        name=n.name, capacity=dict(n.capacity),
-        accelerator=inventory.AcceleratorInfo(
+    return pobj.Node(
+        metadata=PortObjectMeta(name=n.name, namespace=n.metadata.namespace,
+                                labels=dict(n.metadata.labels)),
+        capacity=dict(n.capacity),
+        accelerator=pobj.AcceleratorInfo(
             kind=acc.kind, chips=acc.chips, tpu_type=acc.tpu_type, tpu_slice=acc.tpu_slice,
-            slice_topology=acc.slice_topology, host_index=jsnap.host_index(n),
+            slice_topology=acc.slice_topology,
+            ici_coords=None if acc.ici_coords is None else list(acc.ici_coords),
             nvlink_domain=acc.nvlink_domain),
-        taints=[dict(t) for t in n.taints], unschedulable=n.unschedulable,
-        ready=jobj.node_ready(n))
+        unschedulable=n.unschedulable, taints=[dict(t) for t in n.taints],
+        conditions=[dict(c) for c in n.conditions])
+
+
+def port_group(name, namespace="default", creation_time=None):
+    return pobj.PodGroup(metadata=PortObjectMeta(name=name, namespace=namespace,
+                                                 creation_time=creation_time))
 
 
 def port_request(r):
     meta = r.group.metadata
     return snapshot.GangRequest(
-        group=snapshot.Group(snapshot.GroupMeta(name=r.group.name, namespace=r.group.namespace,
-                                                creation_time=meta.creation_time)),
+        group=port_group(r.group.name, r.group.namespace, meta.creation_time),
         pods=[snapshot.PodRequest(p.name, p.replica_type, p.index, dict(p.resources),
                                   [dict(t) for t in p.tolerations]) for p in r.pods],
         topology=r.topology, num_slices=r.num_slices, tpu_type=r.tpu_type,
@@ -82,7 +86,7 @@ def port_snapshot(api):
     nodes, and the bound pods' resources as usage."""
     usage = [(p.resources(), p.node_name) for p in api.list("Pod")
              if p.node_name and not p.is_terminal()]
-    return snapshot.ClusterSnapshot([port_node(n) for n in api.list("Node")], usage)
+    return burst.usage_snapshot([port_node(n) for n in api.list("Node")], usage)
 
 
 def norm(out):
@@ -161,9 +165,9 @@ def test_topology_and_taint_copies_equal_jax():
     for _ in range(400):
         taints = [item("taint") for _ in range(rng.randint(0, 3))]
         tols = [item("tol") for _ in range(rng.randint(0, 3))]
-        assert inventory.tolerates(taints, tols) == jobj.tolerates(taints, tols)
+        assert pobj.tolerates(taints, tols) == jobj.tolerates(taints, tols)
         for t in tols:
-            assert inventory.toleration_key(t) == jobj.toleration_key(t)
+            assert pobj.toleration_key(t) == jobj.toleration_key(t)
 
 
 def test_pool_functions_equal_jax():
@@ -215,8 +219,8 @@ def test_snapshot_equals_jax():
         assert got.tolerated(n, []) == want.tolerated(n, [])
         assert got.tolerated(n, tol) == want.tolerated(n, tol)
     # An admitted gang holds its pods' resources on their nodes.
-    held = snapshot.ClusterSnapshot(
-        got.nodes.values(), snapshot.gang_usage(
+    held = burst.usage_snapshot(
+        got.nodes.values(), burst.gang_usage(
             burst.job_request(("jax", "j", "1x4", 1, 1, "30", "30")),
             snapshot.Placement({"j-worker-0": "slice-0-host-0"})))
     assert held.free["slice-0-host-0"] == {"cpu": 111.0, "memory": 192.0, TPU: 0.0}
@@ -520,7 +524,7 @@ def build_requests(specs, port):
                  for j in range(pods)]
         topology = what if kind == "tpu" else None
         if port:
-            group = snapshot.Group(snapshot.GroupMeta(name=name, creation_time=created))
+            group = port_group(name, creation_time=created)
             out.append(snapshot.GangRequest(group, [snapshot.PodRequest(*p) for p in preqs],
                                             topology, ns, tpu_type, [dict(t) for t in tols],
                                             expected))
@@ -563,7 +567,7 @@ def test_random_cycles_equal_jax(seed):
         outs = []
         for (placer, port), pend in zip(placers, pending):
             if port:
-                snap = snapshot.ClusterSnapshot(pnodes, used, inventory_gen=gen)
+                snap = burst.usage_snapshot(pnodes, used, inventory_gen=gen)
             else:
                 snap = jsnap.ClusterSnapshot(None, bound_pods=[], podgroups=[], nodes=jnodes)
                 for res, node in used:
@@ -612,8 +616,8 @@ def test_resident_candidates_follow_the_cache():
                 ns[0].taints.append({"key": "maint", "effect": "NoSchedule"})  # slice-0-host-0
         outs = []
         for placer, port in ((torch_p, True), (numpy_p, True), (jax_p, False)):
-            snap = snapshot.ClusterSnapshot(nodes if port else [port_node(n) for n in jnodes],
-                                            busy, inventory_gen=gen)
+            snap = burst.usage_snapshot(nodes if port else [port_node(n) for n in jnodes],
+                                        busy, inventory_gen=gen)
             outs.append(norm(placer.place(build_requests(specs, port), snap, now=10.0)))
         assert outs[0] == outs[1] == outs[2]
         assert all(p is not None for p in outs[0].values()), outs[0]

@@ -1,24 +1,31 @@
-"""Placer workloads at the repo's bench sizes, and a cycle replay to drive them.
+"""The repo's bench bursts on the port: through its operator, and as a placer replay.
 
-Two configurations of the JAX package's `bench.py`, as node records and gang
-requests for `packer.TPUPacker`:
+Two configurations of the JAX package's `bench.py`:
 
 - the burst pool (`bench.py:78-86`): 48 slices of 4x4 (4 hosts of 4 chips),
   32 GPU nodes of 8 in NVLink domains of 4, 16 CPU nodes of 64 cores; its
-  load `build_workload` (`bench.py:102-127`, the same draws) with each job
-  kind's pods as `bench.make_job` builds them (`bench.py:149-192`);
+  load `build_workload` (`bench.py:102-127`, the same draws), each job made
+  by `make_job` (`bench.py:149-192`) as a `JAXJob`, `PyTorchJob` or `TFJob`;
 - the 10k-node block (`bench.py:3084`, `run_solver_scale`): 2500 slices of
   4x4 and 2000 single-slice gangs drawn by `random.Random(7)`.
 
-`replay` runs placers for a measurement on the card; it is not `bench.py`'s burst: no
-controllers, pods or kubelet. At t=0 every gang is pending; each cycle
-calls `place(pending, snapshot, now)` on every placer given, each with its
-own requests and its own snapshot of the same usage, and holds every
-placer's placements to the first's; the admitted gangs' pods are committed
-into the usage, each finishes at `now` plus its duration, the clock moves
-to the next finish, those gangs are released, and the next cycle builds a
-fresh snapshot with the inventory generation unchanged. Admission times are
-this cycle model's, not `bench.py`'s.
+`run_burst` is `bench.run_burst` (`bench.py:394`) on the port's own stack:
+a virtual-clock cluster with `DefaultScheduler` and `SimKubelet`, the
+`OperatorManager` with the JAX, PyTorch and TensorFlow controllers, and the
+`GangScheduler` admitting every PodGroup through the placer given. It
+records each PodGroup's admission and each job's Running and Succeeded
+times from watch events, as they happen (PodGroups are deleted once their
+jobs finish), and returns them with bench's keys.
+
+`replay` runs placers alone, for a measurement on the card: no controllers,
+pods or kubelet. At t=0 every gang is pending; each cycle calls
+`place(pending, snapshot, now)` on every placer given, each with its own
+requests and its own snapshot of the same usage, and holds every placer's
+placements to the first's; the admitted gangs' pods are committed into the
+usage, each finishes at `now` plus its duration, the clock moves to the
+next finish, those gangs are released, and the next cycle builds a fresh
+snapshot with the inventory generation unchanged. Admission times are this
+cycle model's, not `run_burst`'s.
 """
 
 from __future__ import annotations
@@ -26,27 +33,42 @@ from __future__ import annotations
 import heapq
 import random
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-from training_operator_tpu_torch.scheduler.inventory import (
+from training_operator_tpu_torch.api import common as capi
+from training_operator_tpu_torch.api.common import (
+    Container,
+    JobConditionType,
+    PodTemplateSpec,
+    ReplicaSpec,
+)
+from training_operator_tpu_torch.api.jobs import JAXJob, ObjectMeta, PyTorchJob, TFJob, TPUPolicy
+from training_operator_tpu_torch.cluster.inventory import (
     GPU_RESOURCE,
     TPU_RESOURCE,
-    Node,
     accel_family,
     make_cpu_pool,
     make_gpu_pool,
     make_tpu_pool,
     topology_chips,
 )
+from training_operator_tpu_torch.cluster.objects import Node, PodGroup
+from training_operator_tpu_torch.cluster.runtime import (
+    ANNOTATION_SIM_DURATION,
+    Cluster,
+    DefaultScheduler,
+    SimKubelet,
+    VirtualClock,
+)
+from training_operator_tpu_torch.controllers import OperatorManager, register_all
+from training_operator_tpu_torch.scheduler.gang import GangScheduler
 from training_operator_tpu_torch.scheduler.packer import SCALE_SHAPES
 from training_operator_tpu_torch.scheduler.snapshot import (
+    ANNOTATION_EXPECTED_DURATION,
     ClusterSnapshot,
     GangRequest,
-    Group,
-    GroupMeta,
     Placement,
     PodRequest,
-    gang_usage,
 )
 
 TPU_SLICES = 48
@@ -85,11 +107,39 @@ def build_workload(n_jobs: int, seed: int):
     return specs
 
 
+def make_job(spec):
+    """One job of `build_workload`: a JAXJob of `workers` pods of 1 cpu and
+    one host's 4 chips on a v5e slice of the asked topology, a PyTorchJob of
+    2 cpus and its GPUs a pod, or a TFJob of its cores a pod; the pods run
+    for the sim duration and declare the declared one."""
+    kind, name, shape, workers, num_slices, dur, declared = spec
+    if kind == "jax":
+        container = Container(name="jax", image="trainer",
+                              resources={"cpu": 1.0, TPU_RESOURCE: 4.0})
+    elif kind == "gpu":
+        container = Container(name="pytorch", image="trainer",
+                              resources={"cpu": 2.0, GPU_RESOURCE: shape})
+    else:
+        container = Container(name="tensorflow", image="trainer", resources={"cpu": shape})
+    t = PodTemplateSpec(containers=[container])
+    t.annotations[ANNOTATION_SIM_DURATION] = dur
+    if declared is not None:
+        t.annotations[ANNOTATION_EXPECTED_DURATION] = declared
+    specs = {"Worker": ReplicaSpec(replicas=workers, template=t)}
+    if kind == "jax":
+        return JAXJob(metadata=ObjectMeta(name=name), replica_specs=specs,
+                      tpu_policy=TPUPolicy(accelerator=f"v5e-{topology_chips(shape)}",
+                                           topology=shape, num_slices=num_slices))
+    if kind == "gpu":
+        return PyTorchJob(metadata=ObjectMeta(name=name), replica_specs=specs)
+    return TFJob(metadata=ObjectMeta(name=name), replica_specs=specs)
+
+
 def job_request(spec, creation_time: float = 0.0) -> GangRequest:
-    """One job of `build_workload` as its gang: `workers` pods named as the
-    operator names them (`<job>-worker-<i>`); a jax job's pods take 1 cpu
-    and one host's 4 chips on the v5e family, a gpu job's 2 cpus and its
-    GPUs, a cpu job's its cores; the declared duration is the estimate."""
+    """One job of `build_workload` as the gang the operator builds from
+    `make_job`'s job: `workers` pods named `<job>-worker-<i>` with the
+    container's resources, the topology and v5e family of a jax job, and
+    the declared duration as the estimate."""
     kind, name, shape, workers, num_slices, _dur, declared = spec
     if kind == "jax":
         resources = {"cpu": 1.0, TPU_RESOURCE: 4.0}
@@ -99,8 +149,9 @@ def job_request(spec, creation_time: float = 0.0) -> GangRequest:
         topology, tpu_type, num_slices = None, "", 1
     pods = [PodRequest(name=f"{name}-worker-{i}", replica_type="Worker", index=i,
                        resources=dict(resources)) for i in range(workers)]
-    return GangRequest(group=Group(GroupMeta(name=name, creation_time=creation_time)),
-                       pods=pods, topology=topology, num_slices=num_slices, tpu_type=tpu_type,
+    group = PodGroup(metadata=ObjectMeta(name=name, creation_time=creation_time))
+    return GangRequest(group=group, pods=pods, topology=topology, num_slices=num_slices,
+                       tpu_type=tpu_type,
                        expected_duration=float(declared) if declared is not None else None)
 
 
@@ -125,10 +176,30 @@ def scale_requests(n_gangs: int = SCALE_GANGS, seed: int = 7) -> List[GangReques
         topo, hosts = rng.choice(SCALE_SHAPES)
         pods = [PodRequest(name=f"scale-{i}-w-{j}", replica_type="Worker", index=j,
                            resources={"cpu": 1.0, TPU_RESOURCE: 4.0}) for j in range(hosts)]
-        out.append(GangRequest(group=Group(GroupMeta(name=f"scale-{i}",
-                                                     creation_time=float(i) * 0.001)),
-                               pods=pods, topology=topo, num_slices=1, tpu_type="v5e"))
+        group = PodGroup(metadata=ObjectMeta(name=f"scale-{i}", creation_time=float(i) * 0.001))
+        out.append(GangRequest(group=group, pods=pods, topology=topo, num_slices=1,
+                               tpu_type="v5e"))
     return out
+
+
+def gang_usage(req: GangRequest, placement: Placement) -> List[Tuple[Dict[str, float], str]]:
+    """What an admitted gang holds, as (resources, node) pairs: each pod's
+    resources on its node."""
+    return [(pod.resources, placement.assignments[pod.name]) for pod in req.pods
+            if pod.name in placement.assignments]
+
+
+def usage_snapshot(nodes: Iterable[Node], usage: Iterable[Tuple[Dict[str, float], str]] = (),
+                   inventory_gen: Optional[object] = None) -> ClusterSnapshot:
+    """A snapshot of `nodes` with `usage`, (resources, node) pairs, taken:
+    the cold snapshot of no pods and no groups, the usage committed, and
+    `inventory_gen` stamped as the gang scheduler's maintainer stamps it
+    (None = the placer checks the inventory every cycle)."""
+    snap = ClusterSnapshot(None, bound_pods=[], podgroups=[], nodes=nodes)
+    for res, node in usage:
+        snap.commit(res, node)
+    snap.inventory_gen = inventory_gen
+    return snap
 
 
 def placement_diff(a: Dict[str, Optional[Placement]], b: Dict[str, Optional[Placement]]
@@ -173,7 +244,7 @@ def replay(packers: Sequence, nodes: List[Node], specs, max_cycles: int = 400,
         outs = []
         for i, (packer, pend) in enumerate(zip(packers, pending)):
             t = time.perf_counter()
-            snapshot = ClusterSnapshot(nodes, used, inventory_gen=inventory_gen)
+            snapshot = usage_snapshot(nodes, used, inventory_gen=inventory_gen)
             t1 = time.perf_counter()
             packer.last_solve_stats = {}
             outs.append(packer.place(pend, snapshot, now))
@@ -204,3 +275,90 @@ def replay(packers: Sequence, nodes: List[Node], specs, max_cycles: int = 400,
     return {"cycles": cycles, "gangs": len(specs), "admitted": len(admitted_at),
             "admitted_at": admitted_at, "snapshot_ms": snap_ms, "place_ms": place_ms,
             "solve_ms": solve_ms, "rounds": rounds, "end_t": now}
+
+
+def trace_records(trace) -> List[tuple]:
+    """The gang scheduler's cycle records without wall times or the
+    placer's own stats: time, mode, pending (all and TPU), admitted, free
+    TPU hosts and whole free slices. Two runs whose placements agree have
+    equal records."""
+    return [(r["t"], r["mode"], r["pending"], r["pending_tpu"], r["admitted"],
+             r["free_tpu_hosts"], r["whole_free_slices"]) for r in trace]
+
+
+def _pct(sorted_vals, p):
+    return sorted_vals[min(len(sorted_vals) - 1, int(p * len(sorted_vals)))] if sorted_vals else 0.0
+
+
+def run_burst(specs, placer, tpu_slices: int = TPU_SLICES, gpu_nodes: int = GPU_NODES,
+              cpu_nodes: int = CPU_NODES, charge_solve_time: bool = True) -> dict:
+    """`bench.run_burst` on the port's stack (see the module docstring),
+    until every job has finished; raises RuntimeError if one has not by
+    virtual time 50,000 s. With `charge_solve_time` each solve's wall time
+    moves the virtual clock, as in bench; without it the run is a pure
+    function of the specs and the placements.
+
+    Returns `admitted` (PodGroup name -> placement, reserved nodes, score
+    and virtual admission time), `running` and `succeeded` (job name ->
+    the virtual time of that condition; a job that failed has no entry in
+    `succeeded`), the scheduler's `cycles` and `trace`, and bench's keys,
+    unrounded: p50/p90/p99 of schedule-to-running and the makespan in
+    virtual seconds, the solver's wall seconds, its cycles and incremental
+    cycles, and the burst's wall seconds."""
+    cluster = Cluster(VirtualClock())
+    cluster.add_nodes(burst_pool(tpu_slices, gpu_nodes, cpu_nodes))
+    DefaultScheduler(cluster)
+    SimKubelet(cluster)
+    sched = GangScheduler(cluster, placer, charge_solve_time=charge_solve_time, prewarm=True,
+                          min_solve_interval=0.25, incremental=True)
+    mgr = OperatorManager(cluster, gang_enabled=True, reconciles_per_tick=4096)
+    register_all(mgr)
+    jobs = [make_job(s) for s in specs]
+    admitted: Dict[str, tuple] = {}
+    running: Dict[str, float] = {}
+    succeeded: Dict[str, float] = {}
+    finished = set()
+    groups = cluster.api.watch(kinds=("PodGroup",))
+    job_events = cluster.api.watch(kinds={j.kind for j in jobs})
+
+    def track():
+        for ev in groups.drain():
+            pg = ev.obj
+            if ev.type != "Deleted" and pg.placement and pg.name not in admitted:
+                admitted[pg.name] = (dict(pg.placement), list(pg.reserved_nodes),
+                                     pg.placement_score, cluster.clock.now())
+        for ev in job_events.drain():
+            if ev.type != "Modified":
+                continue
+            j = ev.obj
+            if j.name not in running:
+                cond = capi.get_condition(j.status, JobConditionType.RUNNING)
+                if cond is not None and cond.status:
+                    running[j.name] = cond.last_transition_time
+            if capi.is_finished(j.status):
+                finished.add(j.name)
+                cond = capi.get_condition(j.status, JobConditionType.SUCCEEDED)
+                if cond is not None and cond.status:
+                    succeeded.setdefault(j.name, cond.last_transition_time)
+
+    cluster.add_ticker(track)
+    t_wall = time.perf_counter()
+    for j in jobs:
+        mgr.submit(j)
+    ok = cluster.run_until(lambda: len(finished) >= len(jobs), timeout=50_000,
+                           max_steps=5_000_000)
+    wall = time.perf_counter() - t_wall
+    if not ok:
+        raise RuntimeError(f"burst did not finish: {len(jobs) - len(finished)} jobs pending")
+    latencies = sorted(running[j.name] - (j.metadata.creation_time or 0.0)
+                       for j in jobs if j.name in running)
+    return {
+        "admitted": admitted, "running": running, "succeeded": succeeded,
+        "cycles": sched.cycles, "trace": sched.dump_trace(),
+        "p50_s": _pct(latencies, 0.50), "p90_s": _pct(latencies, 0.90),
+        "p99_s": _pct(latencies, 0.99), "makespan_s": cluster.clock.now(),
+        "solver_wall_s": sched.solve_walltime_total, "solver_cycles": sched.cycles,
+        "solver_incremental_cycles": sum(1 for r in sched.trace
+                                         if r.get("mode") == "incremental"),
+        "bench_wall_s": wall, "jobs_measured": len(latencies),
+    }

@@ -8,7 +8,7 @@ enumerated once as a boolean mask over the slice's hosts; slices of equal
 geometry share the enumeration, which is what lets the placer score every
 (gang x slice x candidate) combination as one tensor op.
 
-Host model (inventory.make_tpu_slice): each host owns `chips_per_host`
+Host model (cluster/inventory.make_tpu_slice): each host owns `chips_per_host`
 consecutive chips along the slice grid's minor axis, so the hosts form a
 grid of shape dims[:-1] + [minor // chips_per_host].
 """
@@ -21,7 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from training_operator_tpu_torch.scheduler.inventory import parse_topology
+from training_operator_tpu_torch.cluster.inventory import parse_topology
 
 
 @dataclass(frozen=True)

@@ -36,12 +36,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from training_operator_tpu_torch.cluster.inventory import GPU_RESOURCE, TPU_RESOURCE
+from training_operator_tpu_torch.cluster.objects import toleration_key
 from training_operator_tpu_torch.scheduler.candidates import CandidateCache
-from training_operator_tpu_torch.scheduler.inventory import (
-    GPU_RESOURCE,
-    TPU_RESOURCE,
-    toleration_sig,
-)
 from training_operator_tpu_torch.scheduler.snapshot import (
     Placement,
     request_hosts_per_slice,
@@ -53,6 +50,12 @@ _NEG = -(2**30)
 
 # The packed score reaches about h^3 + h^2, which must stay below |_NEG|.
 MAX_HOSTS = 512
+
+
+def toleration_sig(tolerations) -> Tuple:
+    """Hashable identity of a list of tolerations or taints (the canonical
+    form of GangRequest.toleration_sig and cluster.objects.toleration_key)."""
+    return tuple(sorted(toleration_key(t) for t in tolerations or ()))
 
 
 def next_pow2(n: int) -> int:
@@ -350,6 +353,7 @@ class TPUPacker:
         self._uploads = itertools.count(1)
         self._generic_cache: Optional[Dict[str, Any]] = None
         self._drain_geo_cache: Optional[Tuple] = None
+        self._host_pos_cache: Optional[Tuple] = None
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -687,10 +691,39 @@ class TPUPacker:
         }
         return free, frozenset(reserved)
 
-    @staticmethod
-    def _free_hosts(slices: List[Any], h_max: int, snapshot) -> np.ndarray:
-        """(S, h_max) bool: host h of slice s has its whole chip block free."""
+    def _free_hosts(self, slices: List[Any], h_max: int, snapshot) -> np.ndarray:
+        """(S, h_max) bool: host h of slice s has its whole chip block free.
+
+        An incremental snapshot carries the maintainer's per-host flags
+        (`host_full_free`, the base state) and its own commits in the
+        copy-on-write overlay: the matrix is read from those, as JAX's
+        placer reads it, and not from the free map, which a caller may have
+        edited past the flags (`elastic._resize_tpu_gang` releases a gang's
+        own capacity in place). The host positions are cached by inventory
+        generation."""
         free = np.zeros((len(slices), h_max), dtype=bool)
+        flags = getattr(snapshot, "host_full_free", None)
+        if flags is not None:
+            gen = getattr(snapshot, "inventory_gen", None)
+            pos = self._host_pos_cache
+            if pos is None or pos[0] != (gen, h_max):
+                posmap: Dict[str, Tuple[int, int, int]] = {}
+                flat_nodes: List[str] = []
+                flat_idx: List[int] = []
+                for i, sl in enumerate(slices):
+                    for h, node in enumerate(sl.host_nodes):
+                        posmap[node] = (i, h, sl.chips_per_host)
+                        flat_nodes.append(node)
+                        flat_idx.append(i * h_max + h)
+                pos = self._host_pos_cache = ((gen, h_max), posmap, flat_nodes,
+                                              np.asarray(flat_idx, dtype=np.int64))
+            _, posmap, flat_nodes, flat_idx = pos
+            free.reshape(-1)[flat_idx] = [flags.get(n, False) for n in flat_nodes]
+            for node, avail in (getattr(snapshot, "_overlay", None) or {}).items():
+                at = posmap.get(node)
+                if at is not None:
+                    free[at[0], at[1]] = avail.get(TPU_RESOURCE, 0.0) >= at[2]
+            return free
         free_map = snapshot.free
         for i, sl in enumerate(slices):
             chips = sl.chips_per_host
