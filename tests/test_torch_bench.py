@@ -1,5 +1,5 @@
 """The port's trainer benchmark on the CPU: what can be checked without a
-card (its refusals, the breakdown's arithmetic, the points
+card (its refusals, the trace's arithmetic, the points
 run_trainer_bench measures). The card's numbers come from the card:
 tests/test_torch_cuda.py runs bench_train_step there at a small size."""
 
@@ -14,11 +14,12 @@ def test_bench_train_step_refuses_the_cpu():
         bench.bench_train_step(config, 1, 8, device="cpu")
 
 
-def test_phase_breakdown_by_subtraction(monkeypatch):
-    monkeypatch.setattr(bench, "_phase_times", lambda config, model, data, iters: (10.0, 32.5))
-    out = bench._phase_breakdown(None, None, None, step_ms=40.0, iters=3)
-    assert out == {"fwd_ms": 10.0, "bwd_ms": 22.5, "optimizer_ms": 7.5,
-                   "remat_recompute_ms_est": 10.0, "fwdbwd_ms": 32.5}
+def test_busy_time_is_the_union_of_device_intervals():
+    ms = 1_000_000
+    ops = [("b", 5 * ms, 9 * ms, 0), ("a", 0, 4 * ms, 0), ("c", 6 * ms, 7 * ms, 0),
+           ("d", 8 * ms, 12 * ms, 0), ("e", 20 * ms, 21 * ms, 0)]
+    assert bench._busy_ms(ops) == 4 + 7 + 1
+    assert bench._busy_ms([]) == 0
 
 
 def test_run_trainer_bench_measures_the_long_context_point(monkeypatch):
@@ -47,10 +48,9 @@ def test_run_trainer_bench_measures_the_long_context_point(monkeypatch):
 
 
 def test_d256_runs_the_gemma_width_step_and_its_kernels(monkeypatch, capsys):
-    """`bench --d256`: bench_train_step with its phase breakdown and
-    profile_train_step on gemma2b_config, and bench_attention at its
-    attention shape [1, 4096, 8, 256] (head_dim 256), beside the card's
-    line."""
+    """`bench --d256`: bench_train_step and profile_train_step on
+    gemma2b_config, and bench_attention at its attention shape
+    [1, 4096, 8, 256] (head_dim 256), beside the card's line."""
     import json
     import subprocess
     import types
@@ -75,16 +75,15 @@ def test_d256_runs_the_gemma_width_step_and_its_kernels(monkeypatch, capsys):
                    "attention": "bench_attention"}
     config, batch, seq = bench.gemma2b_config()
     args, kwargs = calls["bench_train_step"]
-    assert args == (config, 1, 4096) and kwargs.get("breakdown", True)
+    assert args == (config, 1, 4096)
     assert calls["profile_train_step"][0] == (config, 1, 4096)
     assert calls["bench_attention"][0] == (1, 4096, 8, 256)
 
 
 def test_fp32_runs_the_full_precision_flagship_and_its_kernels(monkeypatch, capsys):
-    """`bench --fp32`: bench_train_step with its phase breakdown and
-    profile_train_step on flagship_fp32_config, bench_attention at the
-    flagship attention shape in fp32, and float64_errors there and at
-    [1, 4096, 8, 256]."""
+    """`bench --fp32`: bench_train_step and profile_train_step on
+    flagship_fp32_config, bench_attention at the flagship attention shape
+    in fp32, and float64_errors there and at [1, 4096, 8, 256]."""
     import json
     import subprocess
     import types

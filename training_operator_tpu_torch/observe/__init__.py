@@ -1,4 +1,5 @@
-"""Observability: the job-lifecycle span tracer.
+"""Observability: the job-lifecycle span tracer, and the train step's
+profiler ranges (observe/spans.py, read from a torch.profiler trace).
 
 Public surface (the rest of the JAX package's observe plane, attribution,
 describe, export, fleet, invariants and SLOs, is still to be ported):

@@ -2,9 +2,9 @@
 kernels against their plain versions, and the training loop around them.
 
 Counterpart of training_operator_tpu/trainer/bench.py (flagship_config,
-_count_params, flops_per_step, bench_train_step with its phase breakdown,
-bench_attention, bench_dataloader, bench_trainer_e2e, run_trainer_bench
-with its attention_8k point). Times come from CUDA events around work on
+_count_params, flops_per_step, bench_train_step, bench_attention,
+bench_dataloader, bench_trainer_e2e, run_trainer_bench with its
+attention_8k point). Times come from CUDA events around work on
 the card, and the loop's from the host clock; the entry points run on the
 card unless the caller passes another device, and a measurement that finds
 no card raises.
@@ -12,6 +12,7 @@ no card raises.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import re
 import time
@@ -216,8 +217,7 @@ def cuda_time_ms(fn: Callable[[], Any], iters: int = 10, warmup: int = 2) -> flo
 
 
 def bench_train_step(config: TransformerConfig, batch: int, seq: int,
-                     steps: int = 10, warmup: int = 2, device=None,
-                     breakdown: bool = True) -> Dict[str, Any]:
+                     steps: int = 10, warmup: int = 2, device=None) -> Dict[str, Any]:
     """Mean time of the full train step (loss, backward, clip + AdamW) over
     `steps` steps after `warmup`, on one fixed example batch. `compile_s` is
     the first step's host seconds, fenced: it includes what the first use
@@ -226,7 +226,7 @@ def bench_train_step(config: TransformerConfig, batch: int, seq: int,
     before": this process had them already; None: the step ran no kernel).
     `mfu_executed_est` rescales the MFU by 8/6 for the forward a remat step
     recomputes (an upper estimate under a selective policy), None without
-    remat. With `breakdown`, `_phase_breakdown`'s phases."""
+    remat; `profile_train_step` measures the phases and the recompute."""
     from training_operator_tpu_torch.trainer import kernels
     from training_operator_tpu_torch.trainer.train import (
         init_train_state,
@@ -279,49 +279,7 @@ def bench_train_step(config: TransformerConfig, batch: int, seq: int,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
         "final_loss": float(metrics["loss"]),
     }
-    if breakdown:
-        out["breakdown"] = _phase_breakdown(config, state.model, data, step_ms, steps)
     return out
-
-
-def _phase_times(config: TransformerConfig, model, data, iters: int) -> Tuple[float, float]:
-    """(forward ms, forward + backward ms) of `model` on `data`, CUDA
-    events: the loss alone without autograd, then the loss and its
-    backward into the parameters' .grad (cleared before and after)."""
-    from training_operator_tpu_torch.trainer.model import loss_fn
-
-    def forward_only():
-        with torch.no_grad():
-            loss_fn(model, data, config)
-
-    def forward_backward():
-        for p in model.parameters():
-            p.grad = None
-        loss_fn(model, data, config).backward()
-
-    fwd_ms = cuda_time_ms(forward_only, iters=iters, warmup=1)
-    fwdbwd_ms = cuda_time_ms(forward_backward, iters=iters, warmup=1)
-    for p in model.parameters():
-        p.grad = None
-    return fwd_ms, fwdbwd_ms
-
-
-def _phase_breakdown(config: TransformerConfig, model, data, step_ms: float,
-                     iters: int) -> Dict[str, float]:
-    """One train step by ablation, as the JAX bench's `_phase_breakdown`:
-    `fwd_ms` the loss alone, `fwdbwd_ms` the loss and backward, `bwd_ms`
-    their difference (the remat recompute included), `optimizer_ms` the
-    step minus fwdbwd (global-norm clip + AdamW), and
-    `remat_recompute_ms_est` one forward's worth. Phases by subtraction:
-    attribution, not each phase's isolated time."""
-    fwd_ms, fwdbwd_ms = _phase_times(config, model, data, iters)
-    return {
-        "fwd_ms": fwd_ms,
-        "bwd_ms": fwdbwd_ms - fwd_ms,
-        "optimizer_ms": step_ms - fwdbwd_ms,
-        "remat_recompute_ms_est": fwd_ms,
-        "fwdbwd_ms": fwdbwd_ms,
-    }
 
 
 def _kernel_family(name: str) -> str:
@@ -335,16 +293,128 @@ def _kernel_family(name: str) -> str:
     return "elementwise and other"
 
 
+# CUDA runtime and low-level API calls (cuda*, cu*) among a trace's host events: their
+# correlation ids are the tracer's, not the ops'.
+_API_CALL = re.compile(r"^(cuda|cu[A-Z])")
+PHASES = ("forward", "backward", "optimizer", "head", "recompute")
+
+
+def _trace_events(prof) -> Tuple[Dict[int, list], list]:
+    """A finished torch.profiler trace's raw events: the host ops by
+    correlation id, each [name, start, end, thread, enclosing op's id or
+    None] (the innermost op of its thread that holds it), and the device
+    ops, each (name, start, end, id of the host op that launched it), in
+    ns. The train step's ranges (observe/spans.py) are host ops; user
+    annotations' copies on the device's timeline are left out. Of host
+    events that share an id, the first is kept: the ops come before the
+    trace's own events, among them the overhead of a full command buffer,
+    which carries the id of an op open on the caller's thread."""
+    from torch.autograd import DeviceType
+
+    host: Dict[int, list] = {}
+    device = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if (e.start_thread_id() == e.end_thread_id() and e.correlation_id()
+                    and not _API_CALL.match(e.name()) and e.correlation_id() not in host):
+                host[e.correlation_id()] = [e.name(), e.start_ns(), e.end_ns(),
+                                            e.start_thread_id(), None]
+        elif not e.is_user_annotation():
+            device.append((e.name(), e.start_ns(), e.end_ns(), e.linked_correlation_id()))
+    threads: Dict[int, list] = {}
+    for cid, (_, start, end, tid, _) in host.items():
+        threads.setdefault(tid, []).append((start, -end, cid))
+    for ops in threads.values():
+        stack: list = []
+        for start, neg_end, cid in sorted(ops):
+            while stack and host[stack[-1]][2] <= start:
+                stack.pop()
+            if stack and host[stack[-1]][2] >= -neg_end:
+                host[cid][4] = stack[-1]
+            stack.append(cid)
+    return host, device
+
+
+def _busy_ms(device) -> float:
+    """The union of the device ops' intervals, in ms: ops that overlap (on
+    two streams) count once."""
+    busy, reach = 0, None
+    for _, start, end, _ in sorted(device, key=lambda d: d[1]):
+        if reach is not None:
+            start = max(start, reach)
+            end = max(end, reach)
+        busy += end - start
+        reach = end
+    return busy / 1e6
+
+
+def _span_phases(host: Dict[int, list], device, steps: int) -> Dict[str, float]:
+    """Device ms per step by the train step's ranges (observe/spans.py), as
+    benchmark/program_spans.py reads them: by when each op's launching op
+    started, on any thread, `backward` inside `train.backward` (the card's
+    backward runs on autograd's device thread, outside any range of the
+    caller's), `forward` and `optimizer` inside `train.step` before and
+    after its backward; within those, `head` the ops under `model.head` or
+    `model.head.grad` and `recompute` the backward's ops under `model.layer`
+    or `model.head`. forward + backward + optimizer is the steps' device
+    time; head and recompute lie inside them."""
+    from training_operator_tpu_torch.observe import spans
+
+    ranges: Dict[int, frozenset] = {}
+
+    def names(cid):
+        path = []
+        while cid in host and cid not in ranges:
+            path.append(cid)
+            cid = host[cid][4]
+        found = ranges.get(cid, frozenset())
+        for cid in reversed(path):
+            if host[cid][0] in spans.NAMES:
+                found = found | {host[cid][0]}
+            ranges[cid] = found
+        return found
+
+    def intervals(name):
+        return sorted((op[1], op[2]) for op in host.values() if op[0] == name)
+
+    def holding(spans_, t):
+        i = bisect.bisect_right(spans_, (t, float("inf"))) - 1
+        return spans_[i] if i >= 0 and t <= spans_[i][1] else None
+
+    backward, step_spans = intervals(spans.BACKWARD), intervals(spans.STEP)
+
+    def phase(cid):
+        if cid not in host:
+            return None
+        t = host[cid][1]
+        if holding(backward, t):
+            return "backward"
+        step = holding(step_spans, t)
+        inside = [b for b in backward if step and step[0] <= b[0] <= step[1]]
+        if not inside:
+            return None
+        return "forward" if t < inside[0][0] else "optimizer"
+
+    out = dict.fromkeys(PHASES, 0.0)
+    for _, start, end, cid in device:
+        ms, found, ph = (end - start) / 1e6 / steps, names(cid), phase(cid)
+        if ph:
+            out[ph] += ms
+        out["head"] += ms if found & {spans.HEAD, spans.HEAD_GRAD} else 0.0
+        out["recompute"] += ms if ph == "backward" and found & {spans.LAYER, spans.HEAD} else 0.0
+    return out
+
+
 def profile_train_step(config: TransformerConfig, batch: int, seq: int,
                        steps: int = 2, top: int = 30, device=None, mesh=None,
                        stages: int = 0) -> Dict[str, Any]:
     """Where one train step's device time goes: torch.profiler over `steps`
     steps after one warm-up step; device time per kernel family and the top
-    kernels by name, the share of the window the device was idle, and the
-    forward / backward / optimizer phases by subtraction (CUDA events).
-    With `mesh`, the step sharded on it (this rank's rows of the batch);
-    with `stages`, the model as that many pipeline stages through the
-    loopback transport (pipeline.loopback)."""
+    kernels by name, the share of the window (CUDA events) in which no
+    device op ran, and the phases by the step's own ranges
+    (`_span_phases`). With `mesh`, the step sharded on it (this rank's rows
+    of the batch); with `stages`, the model as that many pipeline stages
+    through the loopback transport (pipeline.loopback)."""
     from torch.profiler import ProfilerActivity, profile
 
     from training_operator_tpu_torch.trainer.mesh import shard_batch
@@ -379,15 +449,9 @@ def profile_train_step(config: TransformerConfig, batch: int, seq: int,
         end.record()
         end.synchronize()
     window_ms = start.elapsed_time(end)
-
-    # Phases by subtraction, as the JAX bench's phase breakdown: forward
-    # alone, forward + backward, and the rest of the step (clip + AdamW).
-    fwd_ms, fwdbwd_ms = _phase_times(config, state.model, data, steps)
-    by_name: Dict[str, float] = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
+    host, dev = _trace_events(prof)
+    by_name = _by_name(dev)
+    busy = _busy_ms(dev)
     families: Dict[str, float] = {}
     for name, ms in by_name.items():
         fam = _kernel_family(name)
@@ -396,12 +460,19 @@ def profile_train_step(config: TransformerConfig, batch: int, seq: int,
     return {
         "step_ms": window_ms / steps,
         "device_busy_ms_per_step": busy / steps,
-        "device_idle_share": (1.0 - busy / window_ms) if by_name else None,
-        "phases_ms": {"forward": fwd_ms, "backward_with_recompute": fwdbwd_ms - fwd_ms,
-                      "optimizer_and_rest": window_ms / steps - fwdbwd_ms},
+        "device_idle_share": (1.0 - busy / window_ms) if dev else None,
+        "phases_ms": _span_phases(host, dev, steps),
         "families_ms_per_step": families,
         "top_kernels_ms_per_step": [[name[:120], ms / steps] for name, ms in ranked],
     }
+
+
+def _by_name(device) -> Dict[str, float]:
+    """Device ms of the ops of each name, summed."""
+    out: Dict[str, float] = {}
+    for name, start, end, _ in device:
+        out[name] = out.get(name, 0.0) + (end - start) / 1e6
+    return out
 
 
 RING_CASES = (((8, 2048, 12, 128), 2), ((8, 2048, 12, 128), 4), ((2, 8192, 12, 128), 4))
@@ -414,7 +485,7 @@ def profile_ring(shape=(8, 2048, 12, 128), ns: int = 2, iters: int = 5, top: int
     rank's backward), bf16 causal on random inputs of `shape`: its CUDA-event
     time beside the unsplit flash forward + backward, and a torch.profiler
     window over `iters` calls, the device time by kernel family and top
-    kernels per call and the device's idle share."""
+    kernels per call and the device's idle share (`_busy_ms`)."""
     from torch.profiler import ProfilerActivity, profile
 
     from training_operator_tpu_torch.trainer import attention, flash
@@ -449,17 +520,15 @@ def profile_ring(shape=(8, 2048, 12, 128), ns: int = 2, iters: int = 5, top: int
         end.record()
         end.synchronize()
     window_ms = start.elapsed_time(end)
-    by_name: Dict[str, float] = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
+    dev = _trace_events(prof)[1]
+    by_name = _by_name(dev)
+    busy = _busy_ms(dev)
     families: Dict[str, float] = {}
     for name, ms in by_name.items():
         fam = _kernel_family(name)
         families[fam] = families.get(fam, 0.0) + ms / iters
     out.update(profiled_ms=window_ms / iters, device_busy_ms=busy / iters,
-               device_idle_share=(1.0 - busy / window_ms) if by_name else None,
+               device_idle_share=(1.0 - busy / window_ms) if dev else None,
                families_ms=families,
                top_kernels_ms=[[n[:100], ms / iters] for n, ms in
                                sorted(by_name.items(), key=lambda kv: -kv[1])[:top]])
@@ -955,7 +1024,7 @@ def bench_trainer_e2e(steps: int = 20, ckpt_every: int = 10, warmup: int = 2,
 
 
 def run_trainer_bench(steps: int = 10, device=None) -> Dict[str, Any]:
-    """The flagship train step with its phase breakdown, the kernels at its
+    """The flagship train step, the kernels at its
     attention shape and at the long-context point [2, 8192, 12, 128]
     (`attention_8k`), the data path and the end-to-end loop on the card.
     Unlike the JAX version, a failure raises instead of turning into an
@@ -985,7 +1054,7 @@ def main(argv=None) -> None:
     `--moe` and `--pipeline`, `profile_train_step` on chip_smoke.py phase 9's
     and phase 10's configurations (`moe_config`, `pipeline_config`), beside
     the step's MFU on active parameters (FLOPS_RULE); with `--d256`,
-    `bench_train_step` with its phase breakdown on phase 13's Gemma-2B-width
+    `bench_train_step` on phase 13's Gemma-2B-width
     configuration (`gemma2b_config`), its profile (`profile_train_step`) and
     `bench_attention` at its attention shape [1, 4096, 8, 256]; with
     `--fp32`, the same three on phase 14's full-precision flagship

@@ -29,6 +29,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from training_operator_tpu_torch import native
+from training_operator_tpu_torch.observe.spans import DATA, span
 from training_operator_tpu_torch.trainer.mesh import (
     BATCH_AXES,
     batch_coordinate,
@@ -96,7 +97,9 @@ class DataLoader:
     while the current one is emitted). None takes it where it builds and the
     rows are C-contiguous int32, as the JAX loader does; True requires it
     and raises when it does not build. The batches are the same either
-    way. `mesh`: see the module docstring."""
+    way. `mesh`: see the module docstring. Under a profiler, producing each
+    batch (the gather's wait, slicing, pinning, the copy's launch) is a range
+    `data.next` (observe/spans.py)."""
 
     def __init__(self, dataset: TokenDataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, device=None,
@@ -155,13 +158,17 @@ class DataLoader:
             with native.Prefetcher(rows) as pf:
                 pf.submit(self._take(order, starts[0]))
                 for i, start in enumerate(starts):
-                    chunk = pf.wait()
-                    if i + 1 < len(starts):
-                        pf.submit(self._take(order, starts[i + 1]))
-                    yield self._emit(chunk)
+                    with span(DATA):
+                        chunk = pf.wait()
+                        if i + 1 < len(starts):
+                            pf.submit(self._take(order, starts[i + 1]))
+                        batch = self._emit(chunk)
+                    yield batch
             return
         for start in starts:
-            yield self._emit(rows[self._take(order, start)])
+            with span(DATA):
+                batch = self._emit(rows[self._take(order, start)])
+            yield batch
 
     def _take(self, order: np.ndarray, start: int) -> np.ndarray:
         """The dataset rows of this rank's part of the batch at `start`."""

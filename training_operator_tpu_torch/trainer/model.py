@@ -59,6 +59,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from training_operator_tpu_torch.observe.spans import HEAD, HEAD_GRAD, LAYER, backward_span, span
 from training_operator_tpu_torch.trainer.attention import ATTENTION_OPS, attention
 from training_operator_tpu_torch.trainer.collectives import (
     all_reduce,
@@ -344,22 +345,25 @@ def _mlp_block(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = No
 
 
 def _add_mlp(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh]):
-    out, aux = _mlp_block(x, lp, config, mesh)
-    return x + out, aux
+    with span(LAYER):
+        out, aux = _mlp_block(x, lp, config, mesh)
+        return x + out, aux
 
 
 def decoder_layer(x, lp, config: TransformerConfig, positions, attn_impl: str = "auto",
                   mesh: Optional[DeviceMesh] = None):
     """One pre-norm decoder block on [b, s, d]; returns (x, aux)."""
-    x = x + _attn_block(x, lp, config, positions, attn_impl, mesh)
-    return _add_mlp(x, lp, config, mesh)
+    with span(LAYER):
+        x = x + _attn_block(x, lp, config, positions, attn_impl, mesh)
+        return _add_mlp(x, lp, config, mesh)
 
 
 def _out_and_mlp(x, attn, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
     """The layer after its attention: output projection, residual, MLP;
     returns (x, aux)."""
-    x = x + _out_projection(attn, lp, config, mesh)
-    return _add_mlp(x, lp, config, mesh)
+    with span(LAYER):
+        x = x + _out_projection(attn, lp, config, mesh)
+        return _add_mlp(x, lp, config, mesh)
 
 
 class _NormQKV(torch.autograd.Function):
@@ -530,7 +534,13 @@ def forward(model: Transformer, tokens: torch.Tensor,
 
 
 def _head_nll(x, lm_head, targets, mesh: Optional[DeviceMesh] = None):
-    logits = _head_logits(x, lm_head, mesh)
+    with span(HEAD):
+        return _nll(_head_logits(x, lm_head, mesh), targets, mesh)
+
+
+def _nll(logits, targets, mesh: Optional[DeviceMesh] = None):
+    """Per-token cross-entropy of fp32 logits (under a mesh, this rank's
+    vocab slice of them)."""
     if mesh is None:
         logz = torch.logsumexp(logits, dim=-1)
         target_logit = torch.gather(logits, -1, targets[..., None].long())[..., 0]
@@ -553,10 +563,15 @@ def _head_nll(x, lm_head, targets, mesh: Optional[DeviceMesh] = None):
 def _head(x, lm_head, targets, config: TransformerConfig,
           mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """Per-token cross-entropy of final-norm hidden states [b, s, D],
-    checkpointed under `remat_head`."""
+    checkpointed under `remat_head`; its backward under a profiler range
+    `model.head.grad` (observe/spans.py)."""
     if config.remat_head:
-        return checkpoint(_head_nll, x, lm_head, targets, mesh, use_reentrant=False)
-    return _head_nll(x, lm_head, targets, mesh)
+        def head(x, lm_head):
+            return checkpoint(_head_nll, x, lm_head, targets, mesh, use_reentrant=False)
+    else:
+        def head(x, lm_head):
+            return _head_nll(x, lm_head, targets, mesh)
+    return backward_span(HEAD_GRAD, head, x, lm_head)
 
 
 def final_nll(x, ln_f, lm_head, targets, config: TransformerConfig,

@@ -41,6 +41,14 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from training_operator_tpu_torch.observe.spans import (
+    BACKWARD,
+    BACKWARD_WAIT,
+    FORWARD,
+    OPTIMIZER,
+    STEP,
+    span,
+)
 from training_operator_tpu_torch.trainer.mesh import AXIS_ORDER
 from training_operator_tpu_torch.trainer.model import (
     Transformer,
@@ -291,7 +299,9 @@ def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None,
     mesh, the global loss and norm on every rank. The batch must already lie
     on the step's device (the DataLoader puts it there); under a mesh it is
     this rank's rows, and the state must be sharded on `mesh`. A pipelined
-    model's backward is its schedule's (pipeline.pipeline_loss)."""
+    model's backward is its schedule's (pipeline.pipeline_loss). Under a
+    profiler the step, its loss, its backward and the optimizer are ranges
+    (observe/spans.py)."""
     device = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -301,19 +311,23 @@ def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None,
         if model.mesh is not mesh:
             raise ValueError("the state's mesh is not the step's: shard the state with "
                              "init_train_state/template_train_state(..., mesh=mesh)")
-        params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        loss = loss_fn(model, batch, config)
-        loss.backward()
-        if mesh is not None:
-            reduce_gradients(model)
-        grads = {n: p.grad for n, p in params.items()}
-        grad_norm = optimizer.update(grads, state.opt_state, params, mesh, model.specs)
-        for p in params.values():
-            p.grad = None
-        state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm, "step": state.step}
+        with span(STEP):
+            params = dict(model.named_parameters())
+            for p in params.values():
+                p.grad = None
+            with span(FORWARD):
+                loss = loss_fn(model, batch, config)
+            with span(BACKWARD), span(BACKWARD_WAIT):
+                loss.backward()
+            if mesh is not None:
+                reduce_gradients(model)
+            grads = {n: p.grad for n, p in params.items()}
+            with span(OPTIMIZER):
+                grad_norm = optimizer.update(grads, state.opt_state, params, mesh, model.specs)
+            for p in params.values():
+                p.grad = None
+            state.step += 1
+            return state, {"loss": loss.detach(), "grad_norm": grad_norm, "step": state.step}
 
     return step
 
