@@ -6,7 +6,7 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device   the card must be there; prints nvidia-smi's name and power limit.
-2. build    builds the flash-attention kernels from trainer/csrc with nvcc,
+2. build    builds the port's kernels from trainer/csrc with nvcc,
             one process per source, all at once, and prints the seconds;
             prints ptxas's report (each kernel instantiation, its registers
             and spills) and warnings and, per library, the instructions its
@@ -15,7 +15,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             bf16 and the fp16 instantiations, and HMMA on TF32 (mma.sync)
             with SYNCS (the mbarrier ring) for the fp32 sources, the
             forward's "mma.sync-3xtf32-stream" and dq's and dk/dv's
-            "mma.sync-3xtf32-ring" (kernels.DESIGN_SASS); and the
+            "mma.sync-3xtf32-ring", and HGMMA and UTMALDG for the head's
+            "wgmma-3xtf32+tma" (kernels.DESIGN_SASS); and the
             same per kernel instantiation, with the count of each type's. Any
             instantiation without its design's instructions, or any spill,
             fails the run.
@@ -212,14 +213,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             on, as bench.run_burst runs: each solve's wall time moves the
             virtual clock, so the arms are not compared; prints bench's
             keys per arm. No kernel of the `kernels` line runs here.
+17. head     the head's fp32 products (trainer/head_gemm.py: logits, dX
+            and dW on csrc/head_gemm_fp32.cu's 3xTF32 wgmma kernel) at the
+            benchmark cells' head shapes (bench.HEAD_SHAPES): each one's ms
+            beside its bound (2 T D V at 165 TFLOP/s) and torch.matmul's
+            fp32 SGEMM (`library_ms`), and its max error against float64 on
+            256 sampled rows or columns beside SGEMM's and TF32's
+            (torch.matmul with allow_tf32, set here for the comparison
+            alone). Fails where the kernel's error passes 4x SGEMM's or
+            1/100 of TF32's. Phase 4 holds each step to 2 logits, 1 dX and
+            1 dW launches (remat_head), phase 14 the same.
 
 The last lines are the `kernels` JSON line, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. The `kernels` line has a row per
 wgmma kernel (bf16 launches in phases 4, 6, 8, 9, 10 and 13; time, bound,
 plain and SDPA times and error at the flagship shape and, in the `_d256`
 keys, at [1, 4096, 8, 256]; the same for the fp16 instantiation in the
-`_fp16` and `_fp16_d256` keys) and a row per fp32 kernel (`<name>_fp32`: phase 14's launches
-and the same fields in fp32).
+`_fp16` and `_fp16_d256` keys), a row per fp32 kernel (`<name>_fp32`: phase 14's launches
+and the same fields in fp32) and a row per head product (`head_<product>`:
+phase 4's launches, phase 17's times, bounds, SGEMM's ms and float64
+errors per cell shape).
 
 Tolerances, bf16 kernel against the plain version in fp32 on the same bf16
 inputs:
@@ -739,17 +752,18 @@ def run_mesh(config, batch, seq, card, phase4) -> dict:
                 os.environ[k] = v
 
 
-def timed_steps(step_fn, state, batches, per_step, label):
+def timed_steps(step_fn, state, batches, per_step, label, head_per_step=None):
     """Runs `step_fn` over `batches`: each step must launch `per_step` of
-    each kernel and give a finite loss and norm. Returns (state, losses,
-    device ms of each step after the first)."""
+    each kernel (and `head_per_step` of each head product, where given) and
+    give a finite loss and norm. Returns (state, losses, device ms of each
+    step after the first)."""
     import torch
 
-    from training_operator_tpu_torch.trainer import flash
+    from training_operator_tpu_torch.trainer import flash, head_gemm
 
     losses, times = [], []
     for i, data in enumerate(batches):
-        before = dict(flash.launches)
+        before, head_before = dict(flash.launches), dict(head_gemm.launches)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         state, metrics = step_fn(state, data)
@@ -759,6 +773,10 @@ def timed_steps(step_fn, state, batches, per_step, label):
         grew = {n: flash.launches[n] - before[n] for n in per_step}
         if grew != per_step:
             raise AssertionError(f"{label} step {i}: launches grew by {grew}, expected {per_step}")
+        head_grew = {n: head_gemm.launches[n] - head_before[n] for n in head_gemm.launches}
+        if head_per_step is not None and head_grew != head_per_step:
+            raise AssertionError(f"{label} step {i}: head launches grew by {head_grew}, "
+                                 f"expected {head_per_step}")
         if not torch.isfinite(metrics["loss"]) or not torch.isfinite(metrics["grad_norm"]):
             raise AssertionError(f"{label} step {i}: non-finite loss or grad norm: {metrics}")
         losses.append(loss)
@@ -1252,7 +1270,8 @@ def run_fp32(card) -> dict:
     per_step = {n: config.n_layers for n in flash.launches}
     torch.cuda.reset_peak_memory_stats()
     flash.reset_launches()
-    state, losses, times = timed_steps(step_fn, state, batches, per_step, "fp32")
+    state, losses, times = timed_steps(step_fn, state, batches, per_step, "fp32",
+                                       head_per_step={"logits": 2, "dx": 1, "dw": 1})
     launches = dict(flash.launches)
     by_type = {t: dict(c) for t, c in flash.launches_dtype.items()}
     want = {"fp32": {n: len(batches) * c for n, c in per_step.items()},
@@ -1270,6 +1289,36 @@ def run_fp32(card) -> dict:
     del state, step_fn, batches
     torch.cuda.empty_cache()
     return launches
+
+
+def run_head(card) -> dict:
+    """Phase 17; see the module docstring. Raises where a product's float64
+    error passes its limits; returns {product: {cell shape: fields}}."""
+    import torch
+
+    from training_operator_tpu_torch.trainer import bench
+
+    rows = {}
+    for label, (t, d, v) in bench.HEAD_SHAPES.items():
+        times = bench.bench_head(t, d, v)
+        errs = bench.head_float64_errors(t, d, v)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = bench.head_float64_errors(t, d, v)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        for product, row in times.items():
+            e = errs[product]
+            row.update(err=e["kernel"], sgemm_err=e["library"], tf32_err=tf32[product]["library"],
+                       max_abs=e["max_abs"])
+            rows.setdefault(product, {})[label] = row
+            log(f"head: {product} {label} [T, D, V] {row['shape']} " + json.dumps(row))
+            if not (e["kernel"] <= 4 * e["library"] and e["kernel"] <= row["tf32_err"] / 100):
+                raise AssertionError(f"head {product} at {label}: error {e['kernel']} against "
+                                     f"SGEMM's {e['library']} and TF32's {row['tf32_err']}")
+        torch.cuda.empty_cache()
+    log(f"head: done on {card}")
+    return rows
 
 
 def kernel_type(mangled: str) -> str:
@@ -1326,7 +1375,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from training_operator_tpu_torch.trainer import bench, flash, kernels
+    from training_operator_tpu_torch.trainer import bench, flash, head_gemm, kernels
     from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset
     from training_operator_tpu_torch.trainer.train import (
         init_train_state,
@@ -1407,12 +1456,14 @@ def main() -> int:
 
     per_step = {"flash_fwd": config.n_layers, "flash_bwd_dq": config.n_layers,
                 "flash_bwd_dkv": config.n_layers}
+    head_per_step = {"logits": 2, "dx": 1, "dw": 1}  # remat_head: the logits recomputed
     flash.reset_launches()
+    head_gemm.reset_launches()
     losses, times = [], []
     torch.cuda.reset_peak_memory_stats()
     data = first
     for i in range(6):
-        before = dict(flash.launches)
+        before, head_before = dict(flash.launches), dict(head_gemm.launches)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
@@ -1424,6 +1475,10 @@ def main() -> int:
         grew = {n: flash.launches[n] - before[n] for n in per_step}
         if grew != per_step:
             raise AssertionError(f"step {i}: launches grew by {grew}, expected {per_step}")
+        head_grew = {n: head_gemm.launches[n] - head_before[n] for n in head_per_step}
+        if head_grew != head_per_step:
+            raise AssertionError(f"step {i}: head launches grew by {head_grew}, expected "
+                                 f"{head_per_step}")
         if not torch.isfinite(metrics["loss"]) or not torch.isfinite(metrics["grad_norm"]):
             raise AssertionError(f"step {i}: non-finite loss or grad norm: {metrics}")
         losses.append(loss)
@@ -1444,11 +1499,12 @@ def main() -> int:
     fps = bench.flops_per_step(config, n_matmul, batch, seq)
     mfu = fps / (step_ms / 1e3) / bench.PEAK_BF16_FLOPS["H100"]
     train_launches = dict(flash.launches)
+    head_launches = dict(head_gemm.launches)
     phase4 = {"step_ms": step_ms, "tokens_s": tokens_s,
               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"train: {step_ms:.2f} ms/step (mean of {len(times)}), {tokens_s:.1f} tokens/s, "
         f"MFU {mfu:.4f} of 989 TFLOP/s bf16, peak memory "
-        f"{phase4['peak_gb']:.2f} GB, launches {train_launches} "
+        f"{phase4['peak_gb']:.2f} GB, launches {train_launches}, head {head_launches} "
         f"on {card}")
 
     # The earlier path: one step with every layer under remat "full".
@@ -1522,6 +1578,9 @@ def main() -> int:
     # 16. operator
     run_operator(card)
 
+    # 17. head
+    head = run_head(card)
+
     # report
     sass = build["sass"]
     replaces = {
@@ -1586,6 +1645,21 @@ def main() -> int:
             "bound_by": timing[torch.float32][name]["bound_by"],
             "bound_rule": timing[torch.float32][name]["bound_rule"],
             **timed(name, torch.float32),
+        })
+    src = "head_gemm_fp32.cu"
+    for product, by_shape in head.items():
+        rows.append({
+            "name": f"head_{product}",
+            "route": "cuda",
+            "design": kernels.DESIGN[src],
+            "hgmma": sass[src]["HGMMA"],
+            "utmaldg": sass[src]["UTMALDG"],
+            "source": f"training_operator_tpu_torch/trainer/csrc/{src}",
+            "replaces": "none: the JAX head is XLA's dot (training_operator_tpu/trainer/model.py)",
+            "launches": head_launches[product],
+            "bound_by": "operations",
+            "bound_rule": bench.FLOP_RULES[torch.float32],
+            "cells": by_shape,
         })
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -10,7 +10,7 @@ holds the same kernels against the same plain versions at the flagship shape.
 import pytest
 import torch
 
-from training_operator_tpu_torch.trainer import flash
+from training_operator_tpu_torch.trainer import bench, flash
 
 pytestmark = pytest.mark.cuda
 
@@ -567,3 +567,94 @@ def test_bench_train_step_breakdown(card):
     assert total == pytest.approx(prof["device_busy_ms_per_step"], rel=0.01)
     assert ph["recompute"] < ph["backward"] and ph["head"] < total
     assert 0 <= prof["device_idle_share"] < 1
+
+
+# ----------------------------------------------------------------------
+# The head's fp32 products (trainer/head_gemm.py, csrc/head_gemm_fp32.cu)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("label", list(bench.HEAD_SHAPES))
+def test_head_products_precision_at_the_cells(card, label):
+    """At each benchmark cell's head shape (dX sums over K = 92,544, dW
+    over K = 32,768 in the 32k cell), each product's max error against
+    float64 on sampled rows or columns is at most 4x cuBLAS's fp32 SGEMM's
+    and at most 1/100 of torch.matmul's in TF32."""
+    t, d, v = bench.HEAD_SHAPES[label]
+    fp32 = bench.head_float64_errors(t, d, v)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = bench.head_float64_errors(t, d, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for product, errs in fp32.items():
+        assert errs["kernel"] <= 4 * errs["library"], (product, errs)
+        assert errs["kernel"] <= tf32[product]["library"] / 100, (product, errs, tf32[product])
+        assert tf32[product]["kernel"] == errs["kernel"], product  # the kernel ignores the flag
+
+
+def _head_operands(t, d, v, seed, ints):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if ints:  # small integers: every product is exact in fp32 and in the split
+        return [torch.randint(-3, 4, s, generator=g, device="cuda").float()
+                for s in ((t, d), (d, v), (t, v))]
+    return [torch.randn(s, generator=g, device="cuda") for s in ((t, d), (d, v), (t, v))]
+
+
+# Vocab 256 and 512 (the tests' models), 101 and 257 (row strides TMA
+# refuses, loaded plainly), one block of k or less, ragged tiles on every
+# edge, and T past one 128-row tile.
+HEAD_RAGGED = [(37, 48, 101), (64, 32, 256), (300, 96, 512), (129, 130, 257), (5, 3, 7),
+               (1000, 512, 1000)]
+
+
+@pytest.mark.parametrize("shape", HEAD_RAGGED)
+def test_head_products_on_ragged_shapes(card, shape):
+    """Integer operands give every product exactly (any misplaced element
+    shows); normal ones within 3e-5 of the largest float64 magnitude."""
+    from training_operator_tpu_torch.trainer import head_gemm
+
+    t, d, v = shape
+    for ints in (True, False):
+        x, w, dl = _head_operands(t, d, v, 7, ints)
+        xd, wd, dld = x.double(), w.double(), dl.double()
+        pairs = {"logits": (head_gemm.head_logits(x, w), xd @ wd),
+                 "dx": (head_gemm.head_dx(dl, w), dld @ wd.t()),
+                 "dw": (head_gemm.head_dw(x, dl), xd.t() @ dld)}
+        for product, (got, ref) in pairs.items():
+            if ints:
+                assert torch.equal(got.double(), ref), (product, shape)
+            else:
+                err = (got.double() - ref).abs().max().item()
+                assert err <= 3e-5 * ref.abs().max().item(), (product, shape, err)
+
+
+def test_head_products_from_unaligned_operands(card):
+    """Operands whose base is not 16-byte aligned (TMA refuses them) are
+    loaded plainly: the same products as from aligned copies, bit for bit."""
+    from training_operator_tpu_torch.trainer import head_gemm
+
+    x, w, dl = _head_operands(200, 64, 384, 8, False)
+    buf = torch.empty(x.numel() + 1, device="cuda")
+    xu = buf[1:].view_as(x).copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    assert torch.equal(head_gemm.head_logits(xu, w), head_gemm.head_logits(x, w))
+    assert torch.equal(head_gemm.head_dw(xu, dl), head_gemm.head_dw(x, dl))
+
+
+def test_head_launch_counts_in_a_remat_head_step(card):
+    """One step under remat_head launches the logits twice (the forward and
+    its recompute), dX once and dW once, and no cuBLAS fp32 product (the
+    layers' products are bf16)."""
+    from training_operator_tpu_torch.trainer import head_gemm
+
+    _, _, state, step, batch = _small_train("save_attn_qkv")
+    state, _ = step(state, batch)  # warm-up
+    head_gemm.reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    assert head_gemm.launches == {"logits": 2, "dx": 1, "dw": 1}
+    assert torch.isfinite(metrics["loss"])
+    names = {e.name for e in prof.events()}
+    assert any("head_gemm_kernel" in n for n in names)
+    assert not [n for n in names if "sgemm" in n or "f32f32_f32f32" in n]

@@ -59,9 +59,15 @@ def test_tag_ignores_unlisted_files(csrc_copy):
 # warps' named barriers and the register hand-over; for
 # mma.sync-3xtf32-stream the 3xTF32 product, q staged once in A planes, K
 # and V copied by cp.async into an mbarrier ring, the group's named
-# barriers and the register hand-over.
+# barriers and the register hand-over; for wgmma-3xtf32+tma (the head's
+# products) TMA loads through the mbarrier ring, the tf32 split, the tf32
+# wgmma, the proxy fence before wgmma reads the split planes, and the
+# register hand-over.
 DESIGN_REQUIRES = {
     "wgmma+tma": ('#include "sm90_common.cuh"', "tma_load_4d", "wgmma_", "reg_alloc"),
+    "wgmma-3xtf32+tma": ('#include "flash_fp32.cuh"', '#include "sm90_common.cuh"',
+                         "tma_load_2d(", "mbar_wait(", "split_tf32(", "wgmma_tf32_",
+                         "fence.proxy.async", "reg_alloc"),
     "mma.sync-3xtf32-ring": ('#include "flash_fp32.cuh"', '#include "sm90_common.cuh"',
                              "store_b_", "stage_a_planes<", "mma3_nk<", "mma3_kn<",
                              "c_to_a_tf32(", "mbar_wait(", "named_bar_sync(", "reg_alloc"),
@@ -77,6 +83,7 @@ SPLIT_AS_LOADED = ("load_a(", "load_b_nk(", "load_b_kn(", "mma3_add(", "load_row
 # once per block (no per-tile A loads) and waits on no cp.async group.
 DESIGN_FORBIDS = {
     "wgmma+tma": (),
+    "wgmma-3xtf32+tma": ("mma_tf32(", "mma3(", "mma3_nk<", "mma3_kn<"),
     "mma.sync-3xtf32-ring": SPLIT_AS_LOADED,
     "mma.sync-3xtf32-stream": ("load_a(", "load_rows_f32", "cp_wait"),
 }
@@ -94,6 +101,10 @@ def test_each_source_names_its_design(src):
         # Each is instantiated for bf16 and fp16, with a C entry point each.
         assert "<flash::bf16>" in text and "<flash::f16>" in text
         assert "_bf16(" in text and "_fp16(" in text
+    elif design == "wgmma-3xtf32+tma":
+        # fp32 operands in the 3xTF32 split on wgmma: three products a k step.
+        assert "m64n128k8.f32.tf32.tf32" in text and "_fp32(" in text
+        assert "mma.sync." not in text and "ldmatrix" not in text
     else:
         # The fp32 kernels run no product outside the 3xTF32 split.
         assert "wgmma" not in text and "mma_tf32(" not in text and "_fp32(" in text
@@ -119,25 +130,30 @@ def test_ring_sources_meet_the_block_once(src):
 
 
 def test_fp32_designs():
-    """The fp32 forward is the stream design; dq and dk/dv are the ring
-    design; both are held to their TF32 products and their mbarriers."""
+    """The fp32 flash forward is the stream design; dq and dk/dv are the
+    ring design; both are held to their TF32 products and their mbarriers.
+    The head's fp32 products are wgmma-3xtf32+tma, held to wgmma and TMA."""
     assert {src: d for src, d in kernels.DESIGN.items() if src.endswith("_fp32.cu")} == {
         "flash_fwd_fp32.cu": "mma.sync-3xtf32-stream",
         "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32-ring",
         "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
+        "head_gemm_fp32.cu": "wgmma-3xtf32+tma",
     }
+    assert kernels.DESIGN_SASS["wgmma-3xtf32+tma"] == ("HGMMA", "UTMALDG")
     assert kernels.DESIGN_SASS["mma.sync-3xtf32-ring"] == ("HMMA.TF32", "SYNCS")
     assert kernels.DESIGN_SASS["mma.sync-3xtf32-stream"] == ("HMMA.TF32", "SYNCS")
 
 
 def test_every_entry_point_has_a_library():
-    """Each kernel has a C entry point per type, in the wgmma source for
-    bf16 and fp16 and in its fp32 source for fp32."""
+    """Each flash kernel has a C entry point per type, in the wgmma source
+    for bf16 and fp16 and in its fp32 source for fp32; the head's three
+    products have theirs in head_gemm_fp32.cu."""
     for name, src in kernels._LIB_OF.items():
         assert src in kernels.SOURCES and f'extern "C" int {name}(' in (
             kernels.CSRC / src).read_text(), name
     assert set(kernels._LIB_OF) == set(kernels._SIGNATURES)
-    assert len(kernels._SIGNATURES) == 3 * len(kernels.TYPES)
+    assert len(kernels._SIGNATURES) == 3 * len(kernels.TYPES) + len(kernels.HEAD_ENTRIES)
+    assert {kernels._LIB_OF[name] for name in kernels.HEAD_ENTRIES} == {"head_gemm_fp32.cu"}
 
 
 def test_sass_counts_reads_cuobjdump(monkeypatch, tmp_path):

@@ -1,5 +1,6 @@
 """The trainer runtime on NVIDIA cards: the flagship decoder, its flash
-attention kernels, the AdamW train step, the token data loader, the
+attention kernels and its fp32 head's 3xTF32 GEMM (head_gemm.py), the AdamW
+train step, the token data loader, the
 checkpointer, the trainer loop (standalone.py), the mesh that shards them
 over processes (mesh.py, distributed.py, collectives.py) and the vision
 family (vision.py: the conv classifier with SGD + momentum).

@@ -700,6 +700,74 @@ def float64_errors(batch: int = 8, seq: int = 2048, heads: int = 12, head_dim: i
             "max_abs": r.abs().max().item()} for n, r in ref.items()}}
 
 
+# (T, D, V) of the fp32 head in the benchmark's cells (benchmark/configs):
+# tokens a step, d_model and vocabulary.
+HEAD_SHAPES = {
+    "mistral7b_v03_stage8.seq4k": (16384, 4096, 32768),
+    "internlm2_1p8b.seq4k and .seq16k": (16384, 2048, 92544),
+    "mistral7b_v03_stage8.seq32k": (32768, 4096, 32768),
+}
+
+
+def _head_runs(t: int, d: int, v: int, device, seed: int = 0):
+    """x [t, d], W [d, v] and dL [t, v] of N(0, 1) in fp32, and for each
+    head product its kernel call and the same product by torch.matmul (the
+    yardstick; the port's head never calls it on the card)."""
+    from training_operator_tpu_torch.trainer import head_gemm
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x, w, dl = (torch.randn(shape, generator=g, device=device)
+                for shape in ((t, d), (d, v), (t, v)))
+    return (x, w, dl), {
+        "logits": (lambda: head_gemm.head_logits(x, w), lambda: x @ w),
+        "dx": (lambda: head_gemm.head_dx(dl, w), lambda: dl @ w.t()),
+        "dw": (lambda: head_gemm.head_dw(x, dl), lambda: x.t() @ dl),
+    }
+
+
+def bench_head(t: int, d: int, v: int, iters: int = 5, device=None) -> Dict[str, Dict[str, Any]]:
+    """Each head product's kernel ms beside its bound (2 t d v FLOP at
+    3xTF32's 165 TFLOP/s) and torch.matmul's ms on the same fp32 operands
+    (`library_ms`: cuBLAS's SGEMM unless the caller allows TF32)."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("bench_head measures the card; no CUDA device given")
+    peak = peak_flops(torch.cuda.get_device_name(device), torch.float32)
+    if peak is None:
+        raise ValueError("no published peak rates for this card: bounds need them")
+    _, runs = _head_runs(t, d, v, device)
+    flops = 2.0 * t * d * v
+    result = {}
+    for name, (kernel, library) in runs.items():
+        ms = cuda_time_ms(kernel, iters=iters, warmup=1)
+        result[name] = {"shape": [t, d, v], "ms": ms, "bound_ms": flops / peak * 1e3,
+                        "library_ms": cuda_time_ms(library, iters=iters, warmup=1),
+                        "tflops": flops / ms / 1e9}
+    return result
+
+
+def head_float64_errors(t: int, d: int, v: int, sample: int = 256,
+                        device=None) -> Dict[str, Dict[str, float]]:
+    """Max abs error of each head product, by the kernel and by
+    torch.matmul (as the caller's TF32 setting has it), against float64 on
+    `sample` evenly spaced rows of the logits and of dX and columns of dW,
+    beside the largest magnitude there."""
+    device = resolve_device(device)
+    (x, w, dl), runs = _head_runs(t, d, v, device)
+    rows = torch.arange(0, t, max(1, t // sample), device=device)[:sample]
+    cols = torch.arange(0, v, max(1, v // sample), device=device)[:sample]
+    refs = {"logits": (x[rows].double() @ w.double(), lambda y: y[rows]),
+            "dx": (dl[rows].double() @ w.double().t(), lambda y: y[rows]),
+            "dw": (x.double().t() @ dl[:, cols].double(), lambda y: y[:, cols])}
+    result = {}
+    for name, (kernel, library) in runs.items():
+        ref, pick = refs[name]
+        result[name] = {"kernel": (pick(kernel()).double() - ref).abs().max().item(),
+                        "library": (pick(library()).double() - ref).abs().max().item(),
+                        "max_abs": ref.abs().max().item()}
+    return result
+
+
 # The operand patterns of `mma_sync_rate`, each a kernel of one block per
 # SM whose warps run `mma.sync` m16n8k8 TF32 on registers and time
 # themselves with clock64: "same" one A and one B into 8 independent sums;

@@ -31,7 +31,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
-           "flash_fwd_fp32.cu", "flash_bwd_dq_fp32.cu", "flash_bwd_dkv_fp32.cu")
+           "flash_fwd_fp32.cu", "flash_bwd_dq_fp32.cu", "flash_bwd_dkv_fp32.cu",
+           "head_gemm_fp32.cu")
 HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fp32.cuh")
 # How each source computes. The wgmma+tma sources hold the bf16 and fp16
 # instantiations of each kernel; the fp32 kernels run 3xTF32 products on
@@ -42,6 +43,10 @@ HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fp32.cuh")
 # mma.sync-3xtf32-stream (the forward) stages q once per block in A planes
 # and streams K and V raw through an mbarrier ring filled by cp.async, split
 # as read, for groups of warps that share partial scores by named barriers.
+# The head's fp32 products (head_gemm_fp32.cu) are wgmma-3xtf32+tma: TMA
+# loads of raw fp32 tiles through an mbarrier ring, B split once per stage
+# into tf32 planes in shared memory, A split in registers, three wgmma per
+# k step.
 DESIGN = {
     "flash_fwd.cu": "wgmma+tma",
     "flash_bwd_dq.cu": "wgmma+tma",
@@ -49,6 +54,7 @@ DESIGN = {
     "flash_fwd_fp32.cu": "mma.sync-3xtf32-stream",
     "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32-ring",
     "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
+    "head_gemm_fp32.cu": "wgmma-3xtf32+tma",
 }
 # The SASS instructions every kernel instantiation of a design must show
 # (`kernel_sass_counts`): Hopper's tensor-core wgmma (HGMMA) and TMA loads
@@ -56,6 +62,7 @@ DESIGN = {
 # operations (SYNCS).
 DESIGN_SASS = {
     "wgmma+tma": ("HGMMA", "UTMALDG"),
+    "wgmma-3xtf32+tma": ("HGMMA", "UTMALDG"),
     "mma.sync-3xtf32-ring": ("HMMA.TF32", "SYNCS"),
     "mma.sync-3xtf32-stream": ("HMMA.TF32", "SYNCS"),
 }
@@ -76,11 +83,17 @@ _KERNEL_SIGNATURES = {
     "flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
-_SIGNATURES = {f"{k}_{t}": sig for k, sig in _KERNEL_SIGNATURES.items() for t in TYPES}
+# The head's three fp32 products (x, w or dL, out, T, D, V, chunk, group,
+# stream; head_gemm.py).
+HEAD_ENTRIES = ("head_logits_fp32", "head_dx_fp32", "head_dw_fp32")
+_HEAD_SIGNATURE = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+_SIGNATURES = {**{f"{k}_{t}": sig for k, sig in _KERNEL_SIGNATURES.items() for t in TYPES},
+               **dict.fromkeys(HEAD_ENTRIES, _HEAD_SIGNATURE)}
 # The library of each entry point: bf16 and fp16 in one wgmma source, fp32
-# in its own.
-_LIB_OF = {f"{k}_{t}": f"{k}_fp32.cu" if t == "fp32" else f"{k}.cu"
-           for k in _KERNEL_SIGNATURES for t in TYPES}
+# in its own; the head's in head_gemm_fp32.cu.
+_LIB_OF = {**{f"{k}_{t}": f"{k}_fp32.cu" if t == "fp32" else f"{k}.cu"
+              for k in _KERNEL_SIGNATURES for t in TYPES},
+           **dict.fromkeys(HEAD_ENTRIES, "head_gemm_fp32.cu")}
 
 
 @dataclass
@@ -115,7 +128,7 @@ def nvcc_path() -> str:
     if os.access(default, os.X_OK):
         return default
     raise RuntimeError(
-        "nvcc not found: the flash-attention kernels are built from "
+        "nvcc not found: the port's kernels are built from "
         "training_operator_tpu_torch/trainer/csrc at first use on a CUDA machine"
     )
 

@@ -9,7 +9,8 @@ names and layout so the weight bridge (convert.py) is a renaming:
 - matrices are stored [in, out] and applied as `h @ w`, not `nn.Linear`'s
   [out, in];
 - parameters are fp32; each product casts its weight to `config.dtype`
-  (bf16 by default), and the lm head runs in fp32.
+  (bf16 by default), and the lm head runs in fp32 (on the card through
+  head_gemm.py's 3xTF32 kernel).
 
 Architecture: pre-RMSNorm, split-half rotary embeddings, GQA-capable
 attention, SwiGLU MLP, or with `n_experts > 0` the switch (top-1) MoE MLP of
@@ -61,6 +62,7 @@ from torch.utils.checkpoint import (
 
 from training_operator_tpu_torch.observe.spans import HEAD, HEAD_GRAD, LAYER, backward_span, span
 from training_operator_tpu_torch.trainer.attention import ATTENTION_OPS, attention
+from training_operator_tpu_torch.trainer.head_gemm import head_matmul
 from training_operator_tpu_torch.trainer.collectives import (
     all_reduce,
     copy_to_tensor,
@@ -520,10 +522,11 @@ def backbone(model: Transformer, tokens: torch.Tensor,
 
 def _head_logits(x: torch.Tensor, lm_head: torch.Tensor,
                  mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
-    """fp32 logits; under a mesh this rank's vocab slice [.., V/tensor]."""
+    """fp32 logits; under a mesh this rank's vocab slice [.., V/tensor]. The
+    product and its gradients are head_gemm's op (x @ W on the CPU)."""
     if mesh is None:
-        return x.float() @ lm_head
-    return copy_to_tensor(x.float(), mesh) @ gather(lm_head, mesh, 0, ("fsdp",))
+        return head_matmul(x.float(), lm_head)
+    return head_matmul(copy_to_tensor(x.float(), mesh), gather(lm_head, mesh, 0, ("fsdp",)))
 
 
 def forward(model: Transformer, tokens: torch.Tensor,
