@@ -6,9 +6,8 @@ seeded from the run's seed and the parameter's name, in one call, in fp32
 (the type the state keeps). So any one leaf can be drawn again alone, by
 the program's set-up to measure how far it moved and by the reference
 after the window, without holding a second copy of the model. The
-distribution is the port's init (`init_params`): N(0, 1) embedding,
-N(0, D^-1/2) products, the residual outputs (wo, w2) at D^-1/2 / sqrt(2L),
-norm scales at 1.
+distribution is the model family's (`leaf_init`): a normal draw of the
+family's std, or ones for a norm scale.
 
 Batches for the reference: the rows the DataLoader should emit, worked out
 again from the stream: rows of `seq + 1` tokens, shuffled by
@@ -23,17 +22,6 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-NORMS = ("layers.ln1", "layers.ln2", "ln_f")
-
-
-def leaf_std(dims: dict, name: str) -> float:
-    std = dims["d_model"] ** -0.5
-    if name == "embed":
-        return 1.0
-    if name in ("layers.wo", "layers.w2"):
-        return std / (2 * dims["n_layers"]) ** 0.5
-    return std
-
 
 def leaf_seed(seed: int, name: str) -> int:
     digest = hashlib.sha256(f"{int(seed)}:{name}".encode()).digest()
@@ -41,16 +29,19 @@ def leaf_seed(seed: int, name: str) -> int:
 
 
 @torch.no_grad()
-def fill_leaf(t: torch.Tensor, dims: dict, name: str, seed: int) -> torch.Tensor:
-    """Writes leaf `name`'s initial value into `t` (fp32, on its device)."""
-    if name in NORMS:
+def fill_leaf(t: torch.Tensor, family, dims: dict, name: str, seed: int) -> torch.Tensor:
+    """Writes leaf `name`'s initial value into `t` (fp32, on its device), as
+    the model `family` draws it."""
+    std = family.leaf_init(dims, name)
+    if std is None:
         return t.fill_(1.0)
     g = torch.Generator(device=t.device).manual_seed(leaf_seed(seed, name))
-    return t.normal_(0.0, leaf_std(dims, name), generator=g)
+    return t.normal_(0.0, std, generator=g)
 
 
-def initial_leaf(shape, dims: dict, name: str, seed: int, device) -> torch.Tensor:
-    return fill_leaf(torch.empty(shape, dtype=torch.float32, device=device), dims, name, seed)
+def initial_leaf(shape, family, dims: dict, name: str, seed: int, device) -> torch.Tensor:
+    return fill_leaf(torch.empty(shape, dtype=torch.float32, device=device), family, dims,
+                     name, seed)
 
 
 def reference_batches(stream: np.ndarray, mix: dict, shuffle_seed: int,

@@ -1,9 +1,10 @@
 """The attention kernels' share of their roofline, in percent: over the
 traced window's calls of the flash ops, the least time the card could take
-(yardstick.attention_work at the cell's shapes: max of FLOPs at the dense
-bf16 peak and bytes at the HBM peak), over the device time of every kernel
-that the profiler links to one of those ops. Linked by op, not by kernel
-name, so it reads the same work whatever implements it."""
+(the cell's model family's `attention_bound_s`: for each call the max of
+its FLOPs at the dense bf16 peak and its bytes at the HBM peak), over the
+device time of every kernel that the profiler links to one of those ops.
+Linked by op, not by kernel name, so it reads the same work whatever
+implements it."""
 
 from benchmark import yardstick
 
@@ -25,15 +26,11 @@ def read(run):
         call = t.under(d, OPS)
         if call is not None:
             kernel_ns += d.end - d.start
-            calls.setdefault(t.host[call].name, set()).add(call)
+            calls.setdefault(OPS[t.host[call].name], set()).add(call)
     if kernel_ns == 0:
         return None
-    dims = run.dims
-    work = yardstick.attention_work(run.batch, run.seq, dims["n_heads"],
-                                    dims["d_model"] // dims["n_heads"], True,
-                                    run.dtype_bytes)
-    bound_s = sum(len(ids) * max(work[OPS[op]]["flops"] / flops_peak,
-                                 work[OPS[op]]["bytes"] / bytes_peak)
-                  for op, ids in calls.items())
+    # Correlation ids grow with each launch: sorted, they are in launch order.
+    bound_s = run.family.attention_bound_s(run.dims, run.batch, run.seq, run.dtype_bytes,
+                                           {op: sorted(ids) for op, ids in calls.items()},
+                                           flops_peak, bytes_peak)
     return 100.0 * bound_s / (kernel_ns / 1e9)
-

@@ -43,12 +43,12 @@ def readings(cell, seeds, control_seeds, device, emit) -> None:
 
     device = torch.device(device)
     steps = int(cell.limits.get("steps", 3))
-    opt = cell.run["optimizer"]
+    opt, family, dims = cell.run["optimizer"], cell.family, cell.dims
     for seed in seeds:
         t = time.perf_counter()
         program = Program(cell, seed, device)
         prog = to_floats(first_steps(program, cell, seed, steps))
-        shapes, stream = program.shapes, program.stream
+        stream = program.stream
         program.close()
         del program
         gc.collect()
@@ -57,8 +57,7 @@ def readings(cell, seeds, control_seeds, device, emit) -> None:
         batches = inputs.reference_batches(stream, cell.traffic, traffic.shuffle_seed(seed),
                                            steps)
         plain = reference.numerics(cell.run)
-        ref = reference.run_steps(shapes, cell.dims, opt, seed, batches, device, plain,
-                                  steps=steps)
+        ref = reference.run_steps(family, dims, opt, seed, batches, device, plain, steps=steps)
         emit({"seed": seed, "kind": "program", "gaps": check.gaps(prog, ref),
               "loss": prog["loss"], "ref_loss": ref["loss"], "grad_norm": prog["grad_norm"],
               "ref_grad_norm": ref["grad_norm"], "seconds": time.perf_counter() - t})
@@ -67,7 +66,7 @@ def readings(cell, seeds, control_seeds, device, emit) -> None:
         for kind, prec, half in (("control", reference.numerics(cell.run, control=True), False),
                                  ("half_batch", plain, True)):
             t = time.perf_counter()
-            other = reference.run_steps(shapes, cell.dims, opt, seed, batches, device, prec,
+            other = reference.run_steps(family, dims, opt, seed, batches, device, prec,
                                         steps=steps, half_batch=half)
             emit({"seed": seed, "kind": kind, "gaps": check.gaps(other, ref),
                   "loss": other["loss"], "seconds": time.perf_counter() - t})

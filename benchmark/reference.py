@@ -1,28 +1,17 @@
-"""The plain reference: the decoder's loss, its gradients and clip + AdamW,
-in fp32 with TF32 off, in plain PyTorch.
+"""The plain reference: the model family's loss (its file under
+`benchmark/families/`), its gradients and clip + AdamW, in fp32 with TF32
+off, in plain PyTorch.
 
 A frozen statement of what the port's training step computes, written
 from the equations and importing nothing of the port:
 
-- x = embed[tokens]; per layer, pre-RMSNorm (the configuration's eps, scale
-  w) attention and SwiGLU MLP with residuals: q, k, v = h wq, h wk, h wv;
-  split-half rotary embedding at positions 0..S-1 with `rope_theta`;
-  causal softmax attention at scale D_h^-1/2, query head j reading kv head
-  j // (H / KV); x += attn wo; x += (silu(h2 w1) * (h2 w3)) w2;
-- the final RMSNorm, logits = h lm_head, and the mean over every token of
-  logsumexp(logits) - logits[target];
+- the loss, as the cell's model family writes it (`family.loss`);
 - clip by the global norm of the raw gradients (scaled by clip / norm when
   the norm is at or above `clip_norm`), then AdamW (b1 0.9, b2 0.999, eps
   1e-8, bias correction with the count after the increment, weight decay
   on every leaf added to the update) at a learning rate read from the
   warmup-cosine schedule at the count before the increment: optax's
   `chain(clip_by_global_norm, adamw(warmup_cosine_decay_schedule))`.
-
-It fits beside nothing else: each layer keeps only its input, its q, k
-and v and its attention output (the port's `save_attn_qkv`), and
-recomputes its products in backward; attention runs in blocks of queries,
-each block checkpointed; the head and its cross-entropy run in blocks of
-rows.
 
 `Numerics` says how it computes, from the configuration's `run` block
 (`numerics`): the RMSNorm eps as run (`rms_norm_eps`), and for the control
@@ -41,18 +30,12 @@ import math
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from benchmark import inputs
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 # Elements AdamW treats at once, to bound its temporaries.
 CHUNK = 1 << 26
-# fp32 bytes one block of attention scores may take.
-SCORE_BYTES = 1 << 30
-# Rows of the head's logits computed at once.
-HEAD_ROWS = 2048
 FP8_MAX = 448.0
 
 
@@ -112,94 +95,6 @@ def numerics(run: dict, control: bool = False) -> Numerics:
     return Numerics(run["rms_norm_eps"], **(run["control"] if control else {}))
 
 
-def _rope(x, theta: float, shape):
-    """Split-half rotary embedding of x viewed as [b, s, h, d], at positions
-    0..s-1."""
-    x = x.reshape(shape)
-    s, d = x.shape[1], x.shape[-1]
-    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
-    ang = torch.arange(s, dtype=torch.float32, device=x.device)[:, None] * freqs
-    cos, sin = torch.cos(ang)[None, :, None, :], torch.sin(ang)[None, :, None, :]
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def _attn_block(q, k, v, start: int, prec: Numerics):
-    """Causal attention of queries [start, start + bq) against keys
-    [0, start + bq): q [b, bq, kv, rep, d], k and v [b, n, kv, d]."""
-    d = q.shape[-1]
-    n = k.shape[1]
-    scores = torch.einsum("bqgrd,bkgd->bgrqk", prec.body(q), prec.body(k)) * d ** -0.5
-    rows = torch.arange(start, start + q.shape[1], device=q.device)[:, None]
-    cols = torch.arange(n, device=q.device)[None, :]
-    scores = scores.masked_fill(cols > rows, float("-inf"))
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bgrqk,bkgd->bqgrd", prec.body(p), prec.body(v))
-
-
-def attention(q, k, v, prec: Numerics):
-    """q [b, s, H, d], k and v [b, s, KV, d] -> [b, s, H, d]."""
-    b, s, H, d = q.shape
-    kv = k.shape[2]
-    q = q.reshape(b, s, kv, H // kv, d)
-    bq = max(16, min(s, 2 ** int(math.log2(max(1, SCORE_BYTES // (b * H * s * 4))))))
-    outs = []
-    for start in range(0, s, bq):
-        end = min(s, start + bq)
-        outs.append(checkpoint(_attn_block, q[:, start:end], k[:, :end], v[:, :end],
-                               start, prec, use_reentrant=False))
-    return torch.cat(outs, dim=1).reshape(b, s, H, d)
-
-
-def _qkv(x, lp: Dict[str, torch.Tensor], dims: dict, prec: Numerics):
-    b, s, D = x.shape
-    H, KV = dims["n_heads"], dims["n_kv_heads"]
-    d = D // H
-    h = prec.rms(x, lp["ln1"])
-    q = _rope(prec.body(h) @ prec.body(lp["wq"]), dims["rope_theta"], (b, s, H, d))
-    k = _rope(prec.body(h) @ prec.body(lp["wk"]), dims["rope_theta"], (b, s, KV, d))
-    v = (prec.body(h) @ prec.body(lp["wv"])).reshape(b, s, KV, d)
-    return q, k, v
-
-
-def _out_mlp(x, attn, lp: Dict[str, torch.Tensor], prec: Numerics):
-    mm = lambda a, w: prec.body(a) @ prec.body(w)  # noqa: E731
-    x = x + mm(attn.reshape(x.shape), lp["wo"])
-    h = prec.rms(x, lp["ln2"])
-    return x + mm(F.silu(mm(h, lp["w1"])) * mm(h, lp["w3"]), lp["w2"])
-
-
-def layer(x, lp: Dict[str, torch.Tensor], dims: dict, prec: Numerics):
-    """One decoder layer. The products before and after attention are
-    recomputed in backward; attention keeps its inputs and output and
-    recomputes only its scores, block by block."""
-    q, k, v = checkpoint(_qkv, x, lp, dims, prec, use_reentrant=False)
-    return checkpoint(_out_mlp, x, attention(q, k, v, prec), lp, prec, use_reentrant=False)
-
-
-def _head_sum(h, lm_head, targets, prec: Numerics):
-    logits = prec.head(h) @ prec.head(lm_head)
-    return (torch.logsumexp(logits, -1)
-            - logits.gather(-1, targets[:, None]).squeeze(-1)).sum()
-
-
-def loss(params: Dict[str, torch.Tensor], tokens, targets, dims: dict,
-         prec: Numerics, half_batch: bool = False):
-    """Mean next-token cross-entropy over [b, s] tokens (over the first half
-    of them with `half_batch`)."""
-    x = params["embed"][tokens]
-    names = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w3", "w2")
-    for i in range(dims["n_layers"]):
-        x = layer(x, {n: params["layers." + n][i] for n in names}, dims, prec)
-    h = prec.rms(x, params["ln_f"]).reshape(-1, x.shape[-1])
-    t = targets.reshape(-1)
-    n = t.numel() // 2 if half_batch else t.numel()
-    total = sum(checkpoint(_head_sum, h[i:min(n, i + HEAD_ROWS)], params["lm_head"],
-                           t[i:min(n, i + HEAD_ROWS)], prec, use_reentrant=False)
-                for i in range(0, n, HEAD_ROWS))
-    return total / n
-
-
 def learning_rate(opt: dict, count: int) -> float:
     """optax.warmup_cosine_decay_schedule(0, lr, warmup, decay_steps, 0),
     decay_steps = max(total_steps, warmup + 1)."""
@@ -211,11 +106,11 @@ def learning_rate(opt: dict, count: int) -> float:
     return peak * 0.5 * (1.0 + math.cos(math.pi * c / (decay - warmup)))
 
 
-def run_steps(shapes: Dict[str, tuple], dims: dict, opt: dict, seed: int, batches,
-              device, prec: Numerics, steps: int = 3, half_batch: bool = False
-              ) -> Dict[str, object]:
-    """`steps` training steps from the initial weights of `seed` on
-    `batches` ((inputs, targets) int64 arrays), computed as `prec` says. Returns the readings the
+def run_steps(family, dims: dict, opt: dict, seed: int, batches, device, prec: Numerics,
+              steps: int = 3, half_batch: bool = False) -> Dict[str, object]:
+    """`steps` training steps of the model `family` from the initial weights
+    of `seed` on `batches` ((inputs, targets) int64 arrays), computed as
+    `prec` says. Returns the readings the
     check compares: `loss` and `grad_norm` (raw, global) of every step,
     `grad_leaf` (step 1's clipped gradient, per leaf), `raw_leaf` (step 1's
     raw gradient, per leaf) and `change_leaf` (|p - p0| after the last
@@ -224,14 +119,14 @@ def run_steps(shapes: Dict[str, tuple], dims: dict, opt: dict, seed: int, batche
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        params = {n: inputs.initial_leaf(s, dims, n, seed, device).requires_grad_()
-                  for n, s in shapes.items()}
+        params = {n: inputs.initial_leaf(s, family, dims, n, seed, device).requires_grad_()
+                  for n, s in family.param_shapes(dims).items()}
         mu = {n: torch.zeros_like(p) for n, p in params.items()}
         nu = {n: torch.zeros_like(p) for n, p in params.items()}
         out = {"loss": [], "grad_norm": []}
         for step in range(steps):
             tokens, targets = (torch.as_tensor(a, device=device) for a in batches[step])
-            value = loss(params, tokens, targets, dims, prec, half_batch)
+            value = family.loss(params, tokens, targets, dims, prec, half_batch)
             value.backward()
             grads = {n: p.grad for n, p in params.items()}
             raw = {n: float(torch.linalg.vector_norm(g)) for n, g in grads.items()}
@@ -248,7 +143,7 @@ def run_steps(shapes: Dict[str, tuple], dims: dict, opt: dict, seed: int, batche
         out["change_leaf"] = {}
         with torch.no_grad():
             for n, p in params.items():
-                p0 = inputs.initial_leaf(p.shape, dims, n, seed, device)
+                p0 = inputs.initial_leaf(p.shape, family, dims, n, seed, device)
                 out["change_leaf"][n] = float(torch.linalg.vector_norm(p - p0))
                 del p0
         return out

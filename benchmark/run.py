@@ -86,6 +86,7 @@ class RunView:
     """What the metric readers read (metrics/__init__.py)."""
 
     device_name: str
+    family: object  # the cell's model family (families/__init__.py)
     dims: dict
     batch: int
     seq: int
@@ -130,33 +131,28 @@ class Program:
     the seed), the step and its feed."""
 
     def __init__(self, cell, seed: int, device):
-        import torch
-
-        from benchmark import inputs, traffic, yardstick
+        from benchmark import inputs, traffic
         from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset, pack_tokens
-        from training_operator_tpu_torch.trainer.model import TransformerConfig
         from training_operator_tpu_torch.trainer.train import (
             AdamW,
             make_train_step,
             template_train_state,
         )
 
-        run = cell.run
-        self.config = TransformerConfig(
-            **cell.dims, dtype=getattr(torch, run["dtype"]), remat=True,
-            remat_policy=run["remat_policy"], remat_head=run["remat_head"])
-        self.optimizer = AdamW(**run["optimizer"])
+        family, dims = cell.family, cell.dims
+        self.config = family.port_config(dims, cell.run)
+        self.optimizer = AdamW(**cell.run["optimizer"])
         self.state = template_train_state(self.config, self.optimizer, device)
         params = dict(self.state.model.named_parameters())
-        self.shapes = yardstick.param_shapes(cell.dims)
         have = {n: tuple(p.shape) for n, p in params.items()}
-        if have != self.shapes:
-            raise RuntimeError(f"the port's parameters {have} are not the decoder's {self.shapes}")
+        want = family.param_shapes(dims)
+        if have != want:
+            raise RuntimeError(f"the port's parameters {have} are not the family's {want}")
         for name, p in params.items():
-            inputs.fill_leaf(p.data, cell.dims, name, seed)
+            inputs.fill_leaf(p.data, family, dims, name, seed)
         self.step_fn = make_train_step(self.config, self.optimizer, device)
         mix = cell.traffic
-        self.stream = traffic.token_stream(mix, cell.dims["vocab_size"], seed)
+        self.stream = traffic.token_stream(mix, dims["vocab_size"], seed)
         loader = DataLoader(TokenDataset(pack_tokens(self.stream, mix["seq"])), mix["batch"],
                             shuffle=True, seed=traffic.shuffle_seed(seed), device=device)
         self.feed = Feed(loader)
@@ -194,7 +190,7 @@ def first_steps(program: Program, cell, seed: int, steps: int) -> Dict[str, obje
     change = {}
     with torch.no_grad():
         for n, p in program.state.model.named_parameters():
-            p0 = inputs.initial_leaf(p.shape, cell.dims, n, seed, p.device)
+            p0 = inputs.initial_leaf(p.shape, cell.family, cell.dims, n, seed, p.device)
             change[n] = torch.linalg.vector_norm(p - p0)
             del p0
     out["change_leaf"] = change
@@ -338,7 +334,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     phases["first_steps"] = time.perf_counter() - t_start - sum(phases.values())
     print("run: first steps' seconds " + " ".join(f"{x:.2f}" for x in readings["seconds"]),
           file=sys.stderr)
-    view = RunView(device_name=_device_name(device), dims=cell.dims,
+    view = RunView(device_name=_device_name(device), family=cell.family, dims=cell.dims,
                    batch=cell.traffic["batch"], seq=cell.traffic["seq"],
                    dtype_bytes=torch.empty((), dtype=getattr(torch, cell.run["dtype"])).element_size(),
                    tokens_per_step=cell.traffic["batch"] * cell.traffic["seq"])
@@ -347,7 +343,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     if found:
         raise SystemExit(f"JAX is loaded in the measuring process: {found}")
     prog = to_floats(readings)
-    shapes, opt, stream = program.shapes, cell.run["optimizer"], program.stream
+    stream = program.stream
     program.close()
     del program, readings
     gc.collect()
@@ -366,8 +362,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     phases["read"] = time.perf_counter() - t_read
     batches = inputs.reference_batches(stream, cell.traffic, traffic.shuffle_seed(seed), steps)
     t_ref = time.perf_counter()
-    ref = reference.run_steps(shapes, cell.dims, opt, seed, batches, device,
-                              reference.numerics(cell.run), steps=steps)
+    ref = reference.run_steps(cell.family, cell.dims, cell.run["optimizer"], seed, batches,
+                              device, reference.numerics(cell.run), steps=steps)
     phases.update(window=view.wall_s, trace=view.trace_s, reference=time.perf_counter() - t_ref,
                   total=time.perf_counter() - t_start)
     print("run: seconds " + " ".join(f"{k} {v:.2f}" for k, v in phases.items()),

@@ -9,12 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import inputs, reference, yardstick
+from benchmark import families, inputs, reference
+from benchmark.tiny import REPO
 
 DIMS = dict(vocab_size=96, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=96,
             max_seq_len=64, rope_theta=1e6)
 # The port's RMSNorm eps, which its norms take from no config.
 PLAIN = reference.Numerics(1e-6)
+DECODER = families.load(REPO, "decoder")
 OPT = {"learning_rate": 3e-4, "weight_decay": 0.01, "warmup_steps": 0,
        "total_steps": 100000, "clip_norm": 1.0}
 
@@ -28,7 +30,7 @@ def _port(seed, remat_policy="save_attn_qkv"):
     opt = AdamW(**OPT)
     state = template_train_state(cfg, opt, "cpu")
     for n, p in state.model.named_parameters():
-        inputs.fill_leaf(p.data, DIMS, n, seed)
+        inputs.fill_leaf(p.data, DECODER, DIMS, n, seed)
     return cfg, opt, state
 
 
@@ -49,10 +51,10 @@ def test_loss_and_gradients_match_the_port(seed):
              "mask": torch.ones(tok.shape)}
     port_loss = loss_fn(state.model, batch, cfg)
     port_loss.backward()
-    shapes = yardstick.param_shapes(DIMS)
-    params = {n: inputs.initial_leaf(s, DIMS, n, seed, "cpu").requires_grad_()
+    shapes = DECODER.param_shapes(DIMS)
+    params = {n: inputs.initial_leaf(s, DECODER, DIMS, n, seed, "cpu").requires_grad_()
               for n, s in shapes.items()}
-    ref_loss = reference.loss(params, torch.as_tensor(tok), torch.as_tensor(tgt), DIMS,
+    ref_loss = DECODER.loss(params, torch.as_tensor(tok), torch.as_tensor(tgt), DIMS,
                               PLAIN)
     ref_loss.backward()
     assert abs(float(port_loss.detach()) - float(ref_loss.detach())) < 1e-5
@@ -74,13 +76,12 @@ def test_three_steps_match_the_port():
                                 "mask": torch.ones(tok.shape)})
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    ref = reference.run_steps(yardstick.param_shapes(DIMS), DIMS, OPT, seed, batches, "cpu",
-                              PLAIN)
+    ref = reference.run_steps(DECODER, DIMS, OPT, seed, batches, "cpu", PLAIN)
     np.testing.assert_allclose(losses, ref["loss"], rtol=1e-5)
     np.testing.assert_allclose(norms, ref["grad_norm"], rtol=1e-4)
     for n, p in state.model.named_parameters():
         moved = float(torch.linalg.vector_norm(
-            p.detach() - inputs.initial_leaf(p.shape, DIMS, n, seed, "cpu")))
+            p.detach() - inputs.initial_leaf(p.shape, DECODER, DIMS, n, seed, "cpu")))
         assert moved == pytest.approx(ref["change_leaf"][n], rel=1e-3)
 
 
@@ -113,8 +114,6 @@ def test_numerics_come_from_the_config(name):
     names, so a configuration of another precision brings its control as
     data."""
     import json
-
-    from benchmark.tiny import REPO
 
     run = json.loads((REPO / "benchmark" / "configs" / f"{name}.json").read_text())["run"]
     plain, control = reference.numerics(run), reference.numerics(run, control=True)
@@ -159,7 +158,7 @@ def test_program_fp32_matches_reference_through_the_harness():
         prog = to_floats(first_steps(prog_obj, cell, 9, 3))
         batches = inputs.reference_batches(prog_obj.stream, cell.traffic,
                                            traffic.shuffle_seed(9), 3)
-        ref = reference.run_steps(prog_obj.shapes, cell.dims, cell.run["optimizer"], 9,
+        ref = reference.run_steps(cell.family, cell.dims, cell.run["optimizer"], 9,
                                   batches, "cpu", reference.numerics(cell.run))
         prog_obj.close()
     g = check.gaps(prog, ref)
@@ -177,8 +176,8 @@ def test_remat_policy_does_not_change_the_port(policy):
     (tok, tgt), = _batches(4, 1)
     batch = {"tokens": torch.as_tensor(tok, dtype=torch.int32),
              "targets": torch.as_tensor(tgt, dtype=torch.int32), "mask": torch.ones(tok.shape)}
-    params = {n: inputs.initial_leaf(s, DIMS, n, 4, "cpu")
-              for n, s in yardstick.param_shapes(DIMS).items()}
-    ref = reference.loss(params, torch.as_tensor(tok), torch.as_tensor(tgt), DIMS,
+    params = {n: inputs.initial_leaf(s, DECODER, DIMS, n, 4, "cpu")
+              for n, s in DECODER.param_shapes(DIMS).items()}
+    ref = DECODER.loss(params, torch.as_tensor(tok), torch.as_tensor(tgt), DIMS,
                          PLAIN)
     assert abs(float(loss_fn(state.model, batch, cfg)) - float(ref)) < 1e-5

@@ -7,13 +7,14 @@ from types import SimpleNamespace
 
 import pytest
 
-from benchmark import yardstick
+from benchmark import families
 from benchmark.device_trace import DeviceOp, HostOp, Trace, _nest
 from benchmark.metrics import reader
 from benchmark.tiny import REPO
 
 FWD = "training_operator_tpu_torch::flash_fwd"
 MS = 1_000_000  # ns
+DECODER = families.load(REPO, "decoder")
 
 
 def _trace(flash_ns: int) -> Trace:
@@ -40,7 +41,8 @@ def _trace(flash_ns: int) -> Trace:
 def _run(trace, steps=2):
     dims = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128)
     return SimpleNamespace(trace=trace, steps=steps, device_name="NVIDIA H100 80GB HBM3",
-                           dims=dims, batch=2, seq=32, dtype_bytes=2, data_wait_s=[])
+                           family=DECODER, dims=dims, batch=2, seq=32, dtype_bytes=2,
+                           data_wait_s=[])
 
 
 def test_busy_is_the_union_and_gaps_name_the_host():
@@ -59,7 +61,7 @@ def test_busy_is_the_union_and_gaps_name_the_host():
 def test_attn_roofline_reads_the_bound_over_linked_kernel_time():
     run = _run(None)
     run.batch, run.seq = 4, 4096
-    work = yardstick.attention_work(4, 4096, 4, 16, True, 2)["flash_fwd"]
+    work = DECODER.attention_work(4, 4096, 4, 16, True, 2)["flash_fwd"]
     bound = max(work["flops"] / 989e12, work["bytes"] / 3.35e12)
     run.trace = _trace(round(2 * bound * 1e9))  # one call, twice its bound
     assert reader(REPO, "attn_roofline")(run) == pytest.approx(50.0, rel=1e-4)
@@ -67,6 +69,7 @@ def test_attn_roofline_reads_the_bound_over_linked_kernel_time():
 
 def test_mfu_counts_the_model_flops_of_the_traced_steps():
     run = _run(_trace(MS), steps=2)
-    n = yardstick.count_params(run.dims)[1]
-    want = 100 * 2 * yardstick.flops_per_step(run.dims, n, 2, 32) / 0.1 / 989e12
+    n = DECODER.count_params(run.dims)[1]
+    tokens, attn = 2 * 32, 6 * 2 * 32 * 64
+    want = 100 * 2 * tokens * (6 * n + attn) / 0.1 / 989e12
     assert reader(REPO, "mfu")(run) == pytest.approx(want)

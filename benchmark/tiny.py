@@ -1,6 +1,7 @@
 """A tiny cell in a directory of its own, for the benchmark's CPU tests: a
 BENCHMARK.json with one cell of a 2-layer decoder of the Mistral config's
-form, its traffic and limits, and the metric readers copied beside them."""
+form, its traffic and limits, and the metric readers and model families
+copied beside them."""
 
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ def make_root(tmp: Path, limits: dict = LIMITS) -> Path:
     bench = tmp / "benchmark"
     for d in ("configs", "traffic", "limits"):
         (bench / d).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(REPO / "benchmark" / "metrics", bench / "metrics", dirs_exist_ok=True)
+    for d in ("metrics", "families"):
+        shutil.copytree(REPO / "benchmark" / d, bench / d, dirs_exist_ok=True)
     cfg = json.loads((REPO / "benchmark/configs/mistral7b_v03_stage8.json").read_text())
     cfg["name"] = "tiny"
     cfg["config"].update(DIMS)
