@@ -658,3 +658,68 @@ def test_head_launch_counts_in_a_remat_head_step(card):
     names = {e.name for e in prof.events()}
     assert any("head_gemm_kernel" in n for n in names)
     assert not [n for n in names if "sgemm" in n or "f32f32_f32f32" in n]
+
+
+def _dropless_config(**kw):
+    from training_operator_tpu_torch.trainer.model import TransformerConfig
+
+    return TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2, n_kv_heads=2,
+                             d_ff=128, max_seq_len=512, n_experts=16, n_experts_per_tok=4,
+                             moe_router="dropless", qk_norm=True, rms_norm_eps=1e-5, **kw)
+
+
+def test_dropless_layer_grouped_products_match_the_plain_loop(card):
+    """The dropless layer's grouped products on the card (torch's
+    `_grouped_mm`) against the loop of plain products over the same groups,
+    in bf16: outputs, aux sums and every gradient within 1e-2 of their norm
+    (bf16 products of other row blockings; at the cell's shape they were
+    equal bit for bit)."""
+    from training_operator_tpu_torch.trainer import moe
+
+    config = _dropless_config()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.randn(4, 512, 256, generator=g, device="cuda").to(torch.bfloat16)
+    weights = [torch.randn(256, 16, generator=g, device="cuda") * 0.06,
+               torch.randn(16, 256, 128, generator=g, device="cuda") * 0.06,
+               torch.randn(16, 256, 128, generator=g, device="cuda") * 0.06,
+               torch.randn(16, 128, 256, generator=g, device="cuda") * 0.05]
+    dy = torch.randn(4, 512, 256, generator=g, device="cuda").to(torch.bfloat16)
+
+    def run(products):
+        leaves = [t.clone().requires_grad_() for t in [h, *weights]]
+        saved, moe.grouped_mm = moe.grouped_mm, products
+        try:
+            y, sums = moe.dropless_mlp(leaves[0], leaves[1], dict(zip(("w1", "w3", "w2"),
+                                                                      leaves[2:])), config)
+            ((y.float() * dy.float()).sum() + sums[1].square().sum()).backward()
+        finally:
+            moe.grouped_mm = saved
+        return [y.float(), sums] + [t.grad.float() for t in leaves]
+
+    for got, want in zip(run(moe.grouped_mm), run(moe.plain_grouped_mm)):
+        assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
+def test_a_dropless_step_takes_no_host_sync(card):
+    """An untraced train step of a dropless MoE model with qk-norm (flash
+    kernels at head_dim 128) calls no synchronising CUDA operation."""
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_example_batch,
+        make_optimizer,
+        make_train_step,
+    )
+
+    config = _dropless_config(remat_policy="save_attn_qkv", remat_head=True)
+    optimizer = make_optimizer(warmup_steps=2, total_steps=10)
+    state = init_train_state(config, optimizer, device="cuda")
+    step = make_train_step(config, optimizer, device="cuda")
+    batch = make_example_batch(config, 2, 512, device="cuda")
+    state, _ = step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(metrics["loss"]).item()

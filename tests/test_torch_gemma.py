@@ -42,9 +42,12 @@ def _pin_cpu():
 
 
 def jax_config(pcfg, dtype=jnp.float32):
-    """The JAX TransformerConfig with the same fields as the port's."""
+    """The JAX TransformerConfig with the same fields as the port's (those
+    the JAX config lacks at their defaults, where the models agree)."""
+    defaults = pt_model.TransformerConfig()
+    assert all(getattr(pcfg, n) == getattr(defaults, n) for n in pt_model.PORT_ONLY_FIELDS)
     fields = {f.name: getattr(pcfg, f.name) for f in dataclasses.fields(pcfg)
-              if f.name != "dtype"}
+              if f.name != "dtype" and f.name not in pt_model.PORT_ONLY_FIELDS}
     return jax_model.TransformerConfig(**fields, dtype=dtype)
 
 

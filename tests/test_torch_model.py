@@ -269,8 +269,10 @@ def test_flagship_fp32_config_counts_the_flagships_parameters():
     assert (batch, seq) == (batch_bf16, seq_bf16) == (8, 2048)
     total = bench._count_params(pt_model.Transformer(config, "meta"))[0]
     assert total == bench._count_params(pt_model.Transformer(flagship, "meta"))[0]
+    defaults = pt_model.TransformerConfig()
+    assert all(getattr(config, n) == getattr(defaults, n) for n in pt_model.PORT_ONLY_FIELDS)
     fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(config)
-              if f.name != "dtype"}
+              if f.name != "dtype" and f.name not in pt_model.PORT_ONLY_FIELDS}
     jcfg = jax_model.TransformerConfig(**fields, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda key: jax_model.init_params(jcfg, key),
                             jax.random.PRNGKey(0))

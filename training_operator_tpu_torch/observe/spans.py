@@ -24,12 +24,27 @@ caller's.
 The profiler being on is the only switch: with none active (one check,
 `torch.autograd._profiler_enabled()`), `span` opens no range and
 `backward_span` adds no autograd node, and neither allocates.
+
+The dropless MoE layer (trainer/moe.py) has ranges of its own (`MOE_NAMES`):
+`model.moe` over the layer's forward and its recompute, `model.moe.grad`
+over its backward, and inside them `model.moe.route` (router product,
+softmax, top-k, sort and group offsets, the aux sums), `model.moe.experts`
+(the grouped products) and `model.moe.experts.grad` (their backward).
+
+Counters: a device value that a layer computes only while the train step
+collects them (`counting`: during the forward, and only with a profiler
+active), gathered with one host sync at the end of the step
+(`emit_counts`) and written into the trace as host events named
+`<counter>=<value>` (`counter_event`). `EXPERT_LOAD` is the busiest
+expert's (token, choice) pairs over the mean, E / (T k) times the largest
+count, once a layer and step.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable
+from contextvars import ContextVar
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -43,6 +58,17 @@ HEAD_GRAD = "model.head.grad"
 LAYER = "model.layer"
 DATA = "data.next"
 NAMES = (STEP, FORWARD, BACKWARD, BACKWARD_WAIT, OPTIMIZER, HEAD, HEAD_GRAD, LAYER, DATA)
+MOE = "model.moe"
+MOE_GRAD = "model.moe.grad"
+MOE_ROUTE = "model.moe.route"
+MOE_EXPERTS = "model.moe.experts"
+MOE_EXPERTS_GRAD = "model.moe.experts.grad"
+MOE_NAMES = (MOE, MOE_GRAD, MOE_ROUTE, MOE_EXPERTS, MOE_EXPERTS_GRAD)
+EXPERT_LOAD = "model.moe.expert_load_max"
+
+# The step's counters while it collects them: (name, 0-d device tensor).
+_COUNTS: ContextVar[Optional[List[Tuple[str, torch.Tensor]]]] = ContextVar(
+    "training_operator_tpu_torch_counts", default=None)
 
 _OFF = contextlib.nullcontext()
 
@@ -78,19 +104,20 @@ def span(name: str):
 
 
 class _Open(torch.autograd.Function):
-    """Identity on the region's output; its backward, the region's first
+    """Identity on the region's outputs; its backward, the region's first
     node to run, enters the range."""
 
     @staticmethod
-    def forward(ctx, handle, out):
+    def forward(ctx, handle, *outs):
         ctx.handle = handle
         ctx.set_materialize_grads(False)
-        return out.view_as(out)
+        views = tuple(t.view_as(t) for t in outs)
+        return views if len(views) > 1 else views[0]
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         ctx.handle.__enter__()
-        return None, grad
+        return (None, *grads)
 
 
 class _Close(torch.autograd.Function):
@@ -109,14 +136,61 @@ class _Close(torch.autograd.Function):
         return (None, *grads)
 
 
-def backward_span(name: str, fn: Callable[..., torch.Tensor], *inputs: torch.Tensor
-                  ) -> torch.Tensor:
-    """`fn(*inputs)`, its backward covered by a profiler range `name` while a
-    profiler is active and autograd records: from the first of the region's
-    backward nodes (the output's) to the last (the inputs'). Identities in
-    value; with no profiler, `fn(*inputs)` and nothing more."""
+def backward_span(name: str, fn: Callable[..., torch.Tensor], *inputs: torch.Tensor):
+    """`fn(*inputs)` (a tensor or a tuple of tensors), its backward covered
+    by a profiler range `name` while a profiler is active and autograd
+    records: from the first of the region's backward nodes (the outputs') to
+    the last (the inputs'). Identities in value; with no profiler,
+    `fn(*inputs)` and nothing more."""
     if not (torch.autograd._profiler_enabled() and torch.is_grad_enabled()):
         return fn(*inputs)
     handle = _Range(name)
     inner = _Close.apply(handle, *inputs)
-    return _Open.apply(handle, fn(*inner))
+    out = fn(*inner)
+    return _Open.apply(handle, *out) if isinstance(out, tuple) else _Open.apply(handle, out)
+
+
+@contextlib.contextmanager
+def _collect():
+    counts: List[Tuple[str, torch.Tensor]] = []
+    token = _COUNTS.set(counts)
+    try:
+        yield counts
+    finally:
+        _COUNTS.reset(token)
+
+
+def collect_counts():
+    """A context manager: while a profiler is active, collects the
+    counters its body computes and yields their list; otherwise the shared
+    null context, yielding None."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _collect()
+
+
+def counting() -> bool:
+    """Whether a counter computed now would be kept (`collect_counts`)."""
+    return _COUNTS.get() is not None
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Keeps a 0-d device value of counter `name` while collecting."""
+    counts = _COUNTS.get()
+    if counts is not None:
+        counts.append((name, value.detach().float()))
+
+
+def counter_event(name: str, value: float) -> str:
+    return f"{name}={value!r}"
+
+
+def emit_counts(counts: Optional[List[Tuple[str, torch.Tensor]]]) -> None:
+    """Writes the collected counters into the trace, each as an empty range
+    `<name>=<value>`, after one host sync for all of them."""
+    if not counts:
+        return
+    values = torch.stack([v for _, v in counts]).tolist()
+    for (name, _), value in zip(counts, values):
+        with _Range(counter_event(name, value)):
+            pass

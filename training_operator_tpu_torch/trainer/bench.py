@@ -141,14 +141,15 @@ def gemma2b_config() -> Tuple[TransformerConfig, int, int]:
 
 def _count_params(model: torch.nn.Module) -> Tuple[int, int]:
     """(total, matmul-relevant active) parameter counts: the embedding table
-    is a gather, not a product, and of a MoE layer's expert stacks one
-    expert's share per token (FLOPS_RULE)."""
+    is a gather, not a product, and of a MoE layer's expert stacks the
+    share of the experts a token is sent to (one for the switch layer;
+    FLOPS_RULE)."""
     total = sum(p.numel() for p in model.parameters())
     products = total - model.embed.numel()
     c = model.config
     if c.n_experts > 0:
         experts = sum(getattr(model.layers, n).numel() for n in ("w1", "w3", "w2"))
-        products -= experts - experts // c.n_experts
+        products -= experts - experts * c.n_experts_per_tok // c.n_experts
     return total, products
 
 
@@ -193,7 +194,7 @@ def moe_routing(model, tokens: torch.Tensor,
     shares, dropped = [], []
     for lp in model.layers.unbind():
         x = x + m._attn_block(x, lp, c, positions, c.attn_impl)
-        choice, _, _, keep, _, _ = route(m._rms_norm(x, lp["ln2"]), lp["router"], c)
+        choice, _, _, keep, _, _ = route(m._rms_norm(x, lp["ln2"], c.rms_norm_eps), lp["router"], c)
         counts = torch.bincount(choice, minlength=c.n_experts)
         shares.append((counts.float() / choice.numel()).tolist())
         dropped.append(1.0 - keep.float().mean().item())

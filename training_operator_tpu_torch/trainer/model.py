@@ -13,9 +13,13 @@ names and layout so the weight bridge (convert.py) is a renaming:
   head_gemm.py's 3xTF32 kernel).
 
 Architecture: pre-RMSNorm, split-half rotary embeddings, GQA-capable
-attention, SwiGLU MLP, or with `n_experts > 0` the switch (top-1) MoE MLP of
-moe.py in every layer, whose load-balancing aux loss, averaged over the
-layers, adds to the loss at `router_aux_coef`. `remat=True` applies
+attention, SwiGLU MLP, or with `n_experts > 0` a MoE MLP of moe.py in every
+layer, whose load-balancing aux loss adds to the loss at `router_aux_coef`:
+the switch (top-1) layer, its aux averaged over the layers, or with
+`moe_router="dropless"` the dropless top-k layer, its aux pooled over the
+layers (OLMoE's). `qk_norm` adds RMSNorms over the whole q and k
+projections before RoPE (OLMoE's q_norm and k_norm); every norm takes
+`rms_norm_eps`. `remat=True` applies
 `remat_policy` to each layer (`layer_body`, the JAX `make_layer_body`);
 `remat_head=True` checkpoints the head and loss. On a mesh with a
 `pipeline` axis, or a model given to `pipeline.loopback`, the loss runs the
@@ -75,7 +79,7 @@ from training_operator_tpu_torch.trainer.mesh import (
     axis_size,
     sequence_coordinate,
 )
-from training_operator_tpu_torch.trainer.moe import moe_mlp
+from training_operator_tpu_torch.trainer.moe import balance_loss, dropless_mlp, moe_mlp
 
 
 def resolve_device(device=None) -> torch.device:
@@ -106,6 +110,14 @@ class TransformerConfig:
     n_experts: int = 0
     expert_capacity: float = 1.25  # slots per expert = capacity * tokens / E
     router_aux_coef: float = 0.01  # weight of the load-balancing loss
+    # The MoE layer: "switch" (the above) or "dropless" (softmax top-
+    # `n_experts_per_tok`, gates not renormalised, no token dropped;
+    # moe.dropless_mlp; unsharded only).
+    moe_router: str = "switch"
+    n_experts_per_tok: int = 1
+    # RMSNorm over the whole q and k projections before RoPE; unsharded only.
+    qk_norm: bool = False
+    rms_norm_eps: float = 1e-6  # every RMSNorm's epsilon
     # GPipe microbatches on a mesh with a `pipeline` axis (0: one per
     # stage); read there only.
     pipeline_microbatches: int = 0
@@ -126,6 +138,7 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
     REMAT_POLICIES = ("full", "mlp_only", "save_attn", "save_attn_qkv", "save_dots")
+    MOE_ROUTERS = ("switch", "dropless")
 
     def validate(self) -> None:
         if self.d_model % self.n_heads or self.n_heads % self.n_kv_heads:
@@ -138,20 +151,40 @@ class TransformerConfig:
         if self.n_experts < 0 or self.pipeline_microbatches < 0:
             raise ValueError(f"n_experts={self.n_experts} and pipeline_microbatches="
                              f"{self.pipeline_microbatches} must not be negative")
+        if self.moe_router not in self.MOE_ROUTERS:
+            raise ValueError(f"unknown moe_router {self.moe_router!r}; one of {self.MOE_ROUTERS}")
+        if self.moe_router == "switch" and self.n_experts_per_tok != 1:
+            raise ValueError("the switch router sends a token to one expert")
+        if self.moe_router == "dropless" and not 1 <= self.n_experts_per_tok <= self.n_experts:
+            raise ValueError(f"n_experts_per_tok={self.n_experts_per_tok} must lie in "
+                             f"1..n_experts={self.n_experts}")
 
+    @property
+    def unsharded_only(self) -> bool:
+        """Whether the model has parts that run only unsharded: the dropless
+        MoE layer, qk-norm."""
+        return self.qk_norm or (self.n_experts > 0 and self.moe_router == "dropless")
+
+
+# Fields the JAX package's TransformerConfig lacks: at their defaults the
+# port's model is the JAX one.
+PORT_ONLY_FIELDS = ("moe_router", "n_experts_per_tok", "qk_norm", "rms_norm_eps")
 
 LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w3", "w2")
 MOE_LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "router", "w1", "w3", "w2")
 
 
 def layer_params(config: TransformerConfig) -> Tuple[str, ...]:
-    return MOE_LAYER_PARAMS if config.n_experts > 0 else LAYER_PARAMS
+    names = MOE_LAYER_PARAMS if config.n_experts > 0 else LAYER_PARAMS
+    if config.qk_norm:
+        names = names[:4] + ("q_norm", "k_norm") + names[4:]
+    return names
 
 
 def param_shapes(config: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
     """The full shape of every parameter, by the port's names (JAX
     `init_params`): a MoE layer's router is [D, E] and its expert stacks
-    lead with E."""
+    lead with E; qk-norm's scales are [q_dim] and [kv_dim]."""
     c = config
     dm, dff, L, V = c.d_model, c.d_ff, c.n_layers, c.vocab_size
     q_dim, kv_dim = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
@@ -159,6 +192,7 @@ def param_shapes(config: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
         "ln1": (L, dm), "wq": (L, dm, q_dim), "wk": (L, dm, kv_dim),
         "wv": (L, dm, kv_dim), "wo": (L, q_dim, dm), "ln2": (L, dm),
         "w1": (L, dm, dff), "w3": (L, dm, dff), "w2": (L, dff, dm),
+        "q_norm": (L, q_dim), "k_norm": (L, kv_dim),
     }
     if c.n_experts > 0:
         E = c.n_experts
@@ -272,10 +306,10 @@ def zeros_sharded(config: TransformerConfig, mesh: DeviceMesh, device) -> Transf
         local_shape(name, shape, mesh, specs), device=resolve_device(device)))
 
 
-def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + 1e-6)).to(x.dtype) * scale.to(x.dtype)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -299,18 +333,36 @@ def _weight(lp, name: str, mesh: Optional[DeviceMesh]) -> torch.Tensor:
     return gather(w, mesh, LAYER_FSDP_DIM[name] + w.dim() - 2, ("fsdp",))
 
 
-def _qkv_products(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
-    """norm -> the q, k, v products, as [b, s, heads, head_dim] (this rank's
+def _qkv_raw(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
+    """norm -> the q, k, v products, as [b, s, heads * head_dim] (this rank's
     heads under a mesh)."""
     c = config
-    b, s, _ = x.shape
-    h = _rms_norm(x, lp["ln1"])
+    h = _rms_norm(x, lp["ln1"], c.rms_norm_eps)
     if mesh is not None:
         h = copy_to_tensor(h, mesh)
-    q = (h @ _weight(lp, "wq", mesh).to(c.dtype)).reshape(b, s, -1, c.head_dim)
-    k = (h @ _weight(lp, "wk", mesh).to(c.dtype)).reshape(b, s, -1, c.head_dim)
-    v = (h @ _weight(lp, "wv", mesh).to(c.dtype)).reshape(b, s, -1, c.head_dim)
-    return q, k, v
+    return tuple(h @ _weight(lp, n, mesh).to(c.dtype) for n in ("wq", "wk", "wv"))
+
+
+def _qk_norm(q, k, lp, config: TransformerConfig):
+    """qk-norm, where the config has it: an RMSNorm over each of the whole q
+    and k projections."""
+    if not config.qk_norm:
+        return q, k
+    eps = config.rms_norm_eps
+    return _rms_norm(q, lp["q_norm"], eps), _rms_norm(k, lp["k_norm"], eps)
+
+
+def _heads(t, config: TransformerConfig):
+    b, s, _ = t.shape
+    return t.reshape(b, s, -1, config.head_dim)
+
+
+def _qkv_products(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
+    """norm -> the q, k, v products (and qk-norm), as [b, s, heads,
+    head_dim] (this rank's heads under a mesh)."""
+    q, k, v = _qkv_raw(x, lp, config, mesh)
+    q, k = _qk_norm(q, k, lp, config)
+    return _heads(q, config), _heads(k, config), _heads(v, config)
 
 
 def _out_projection(attn, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
@@ -331,12 +383,14 @@ def _attn_block(x, lp, config: TransformerConfig, positions, attn_impl: str,
 
 
 def _mlp_block(x, lp, config: TransformerConfig, mesh: Optional[DeviceMesh] = None):
-    """norm -> SwiGLU, or the switch MoE; returns (out, aux), aux None for
-    the dense MLP."""
+    """norm -> SwiGLU, or a MoE; returns (out, aux), aux None for the dense
+    MLP (the dropless layer's a [2, E] stack, moe.balance_loss)."""
     c = config
-    h = _rms_norm(x, lp["ln2"])
+    h = _rms_norm(x, lp["ln2"], c.rms_norm_eps)
     if c.n_experts > 0:
         experts = {n: _weight(lp, n, mesh) for n in ("w1", "w3", "w2")}
+        if c.moe_router == "dropless":
+            return dropless_mlp(h, lp["router"], experts, c)
         return moe_mlp(h, lp["router"], experts, c, mesh)
     if mesh is not None:
         h = copy_to_tensor(h, mesh)
@@ -372,22 +426,38 @@ class _NormQKV(torch.autograd.Function):
     """`_qkv_products` keeping only its inputs for the backward: that
     recomputes the norm (the weight gradients need its output) and none of
     the three products, whose gradients are products with the saved
-    weights. Under a mesh it takes the gathered weights and sums the norm
-    output's gradient over `tensor` (the f of copy_to_tensor)."""
+    weights. With qk-norm it keeps the q and k products too, and recomputes
+    their norms. Under a mesh it takes the gathered weights and sums the
+    norm output's gradient over `tensor` (the f of copy_to_tensor)."""
 
     @staticmethod
-    def forward(ctx, x, ln1, wq, wk, wv, config, mesh):
-        ctx.save_for_backward(x, ln1, wq, wk, wv)
+    def forward(ctx, x, ln1, wq, wk, wv, q_norm, k_norm, config, mesh):
         ctx.config, ctx.mesh = config, mesh
-        return _qkv_products(x, {"ln1": ln1, "wq": wq, "wk": wk, "wv": wv}, config)
+        q, k, v = _qkv_raw(x, {"ln1": ln1, "wq": wq, "wk": wk, "wv": wv}, config)
+        if config.qk_norm:
+            ctx.save_for_backward(x, ln1, wq, wk, wv, q, k, q_norm, k_norm)
+            q, k = _qk_norm(q, k, {"q_norm": q_norm, "k_norm": k_norm}, config)
+        else:
+            ctx.save_for_backward(x, ln1, wq, wk, wv)
+        return _heads(q, config), _heads(k, config), _heads(v, config)
 
     @staticmethod
     def backward(ctx, gq, gk, gv):
-        x, ln1, *ws = ctx.saved_tensors
-        dtype = ctx.config.dtype
+        x, ln1, *ws = ctx.saved_tensors[:5]
+        config = ctx.config
+        dtype, eps = config.dtype, config.rms_norm_eps
+        dnorms = (None, None)
+        if config.qk_norm:
+            q, k, q_norm, k_norm = ctx.saved_tensors[5:]
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (q, k, q_norm, k_norm)]
+                qn = _rms_norm(leaves[0], leaves[2], eps)
+                kn = _rms_norm(leaves[1], leaves[3], eps)
+            gq, gk, *dnorms = torch.autograd.grad(
+                (qn, kn), leaves, (gq.reshape(qn.shape), gk.reshape(kn.shape)))
         with torch.enable_grad():
             xd, lnd = x.detach().requires_grad_(), ln1.detach().requires_grad_()
-            h = _rms_norm(xd, lnd)
+            h = _rms_norm(xd, lnd, eps)
         h2 = h.detach().reshape(-1, h.shape[-1])
         dh, dws = None, []
         for w, g in zip(ws, (gq, gk, gv)):
@@ -398,7 +468,7 @@ class _NormQKV(torch.autograd.Function):
         if ctx.mesh is not None:
             all_reduce(dh, ctx.mesh, ("tensor",))
         dx, dln = torch.autograd.grad(h, (xd, lnd), dh.reshape(h.shape))
-        return dx, dln, *dws, None, None
+        return dx, dln, *dws, *dnorms, None, None
 
 
 def _save_attention_outputs(ctx, op, *args, **kwargs):
@@ -457,7 +527,8 @@ def layer_body(config: TransformerConfig, positions,
     if policy == "save_attn_qkv":
         def body(x, lp):
             weights = [_weight(lp, n, mesh) for n in ("wq", "wk", "wv")]
-            q, k, v = _NormQKV.apply(x, lp["ln1"], *weights, c, mesh)
+            q, k, v = _NormQKV.apply(x, lp["ln1"], *weights, lp.get("q_norm"),
+                                     lp.get("k_norm"), c, mesh)
             q = _rope(q, positions, c.rope_theta)
             k = _rope(k, positions, c.rope_theta)
             attn = attention(q, k, v, causal=True, impl=impl, mesh=mesh)
@@ -505,9 +576,11 @@ def _backbone(model: Transformer, tokens: torch.Tensor, config: TransformerConfi
     positions = torch.arange(offset, offset + s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     x, aux = run_layers(x, model.layers.unbind(), layer_body(config, positions, mesh))
-    if aux is not None:
+    if aux is not None and config.moe_router == "dropless":
+        aux = balance_loss(aux, b * s, config)  # pooled over the layers
+    elif aux is not None:
         aux = aux / config.n_layers  # the mean over layers (JAX aux_layers.mean())
-    return _rms_norm(x, model.ln_f), aux
+    return _rms_norm(x, model.ln_f, config.rms_norm_eps), aux
 
 
 def backbone(model: Transformer, tokens: torch.Tensor,
@@ -581,7 +654,7 @@ def final_nll(x, ln_f, lm_head, targets, config: TransformerConfig,
               mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """The final norm, the head and the per-token cross-entropy of the last
     layer's output x [b, s, D] (a pipeline's last stage)."""
-    return _head(_rms_norm(x, ln_f), lm_head, targets, config, mesh)
+    return _head(_rms_norm(x, ln_f, config.rms_norm_eps), lm_head, targets, config, mesh)
 
 
 def masked_sums(nll: torch.Tensor, mask: Optional[torch.Tensor],
@@ -673,6 +746,8 @@ def param_specs(config: TransformerConfig) -> Specs:
     specs = dict(PARAM_SPECS)
     if config.n_experts > 0:
         specs.update(MOE_SPECS)
+    if config.qk_norm:
+        specs.update({"layers.q_norm": ((), ()), "layers.k_norm": ((), ())})
     return specs
 
 
@@ -743,6 +818,8 @@ def local_shard(name: str, full: torch.Tensor, mesh: DeviceMesh, specs: Specs) -
 def _check_mesh(config: TransformerConfig, mesh) -> None:
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"sharding needs a DeviceMesh (mesh.build_mesh), not {mesh!r}")
+    if config.unsharded_only:
+        raise ValueError("the dropless MoE layer and qk-norm run unsharded only")
     # The JAX attention falls back to its unsharded path where the heads do
     # not split over `tensor`; the port raises.
     tensor = axis_size(mesh, "tensor")

@@ -1,4 +1,5 @@
-"""The switch (top-1) mixture-of-experts MLP, dispatched by index.
+"""The mixture-of-experts MLPs: the switch (top-1) layer, dispatched by
+index, and the dropless top-k layer (`dropless_mlp`, below).
 
 Counterpart of the JAX `_moe_mlp` (training_operator_tpu/trainer/model.py
 :271-315), which computes the same function with one-hot dispatch and
@@ -35,6 +36,34 @@ would multiply them by the number of sources), and the results come back
 by the inverse all-to-all. The split sizes reach the host, one sync per
 MoE call. The expert products use the fsdp-gathered expert weights and the
 dense MLP's tensor-parallel f and g.
+
+The dropless top-k layer (`moe_router="dropless"`; OLMoE's block, transformers'
+`OlmoeSparseMoeBlock`) has no JAX counterpart. Its rules:
+
+- `probs = softmax(h W_router)` over all E experts, in fp32; each token's
+  `n_experts_per_tok` largest probabilities are its gates, not
+  renormalised, and their experts its choices;
+- no capacity: every (token, choice) pair is computed;
+- `out[t] = sum_j gate[t, j] * SwiGLU_choice[t, j](h[t])`, each gate rounded
+  to the compute dtype before its product, the k terms summed in fp32
+  accumulation and rounded once;
+- the load-balancing loss pools every layer (transformers'
+  `load_balancing_loss_func`): with C_e the (token, choice) pairs that chose
+  expert e and P_e the sum of e's probability, both over every layer's
+  tokens, `aux = E * sum_e (C_e / (L T)) * (P_e / (L T))`; a layer returns
+  its [2, E] stack of (C_e, P_e) and `balance_loss` forms it.
+
+Its pairs are sorted by expert on the device (a stable sort, so each
+expert's rows keep token order) into one [M, D] buffer of groups, each
+padded with zero rows to a multiple of `GROUP_ALIGN` and at least that,
+the slack of the fixed M = T k + GROUP_ALIGN E rows given to the last
+group, so every shape is fixed and no count reaches the host. The three
+SwiGLU products run over the groups as grouped GEMMs (`grouped_mm`): on the
+card torch's `_grouped_mm` (a CUTLASS sm90 grouped GEMM that reads the group
+offsets on the device, with its own backward), on the CPU a loop of plain
+products over the groups. The padding keeps every group's rows 16-byte
+aligned and never empty, which the grouped GEMM's weight gradient needs.
+It runs unsharded (model.py refuses a mesh).
 """
 
 from __future__ import annotations
@@ -46,6 +75,18 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from training_operator_tpu_torch.observe.spans import (
+    EXPERT_LOAD,
+    MOE,
+    MOE_EXPERTS,
+    MOE_EXPERTS_GRAD,
+    MOE_GRAD,
+    MOE_ROUTE,
+    backward_span,
+    count,
+    counting,
+    span,
+)
 from training_operator_tpu_torch.trainer.collectives import (
     all_reduce,
     all_to_all,
@@ -140,3 +181,130 @@ def _expert_parallel(x, owner, slot, keep, experts, config, mesh: DeviceMesh,
     y = expert_products(buf.view(local, cap, d), experts, config, mesh)
     back = all_to_all(y.reshape(-1, d)[rows], group, in_splits, out_splits)
     return x.new_zeros(x.shape).index_add(0, idx, back)
+
+
+# The rows of each expert's group in the dropless layer's grouped products
+# are a multiple of this, and at least this (the module docstring).
+GROUP_ALIGN = 16
+
+
+def route_topk(x: torch.Tensor, router: torch.Tensor, config):
+    """The dropless router on x [T, D]: (gate [T, k] fp32, choice [T, k],
+    counts [E] int64 (pairs per expert), probs [T, E] fp32), k the config's
+    `n_experts_per_tok`, gates in descending order."""
+    E, k = config.n_experts, config.n_experts_per_tok
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    gate, choice = probs.topk(k, dim=-1)
+    flat = choice.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    return gate, choice, counts, probs
+
+
+def group_layout(choice: torch.Tensor, counts: torch.Tensor, n_experts: int):
+    """Where each (token, choice) pair lands in the grouped buffer: (dest
+    [T k], its row of each pair in token-major order; offs [E] int32, the
+    end row of each expert's group; rows M of the buffer). All on the
+    device, with fixed shapes."""
+    pairs = choice.numel()
+    rows = pairs + GROUP_ALIGN * n_experts
+    size = ((counts + GROUP_ALIGN - 1) // GROUP_ALIGN).clamp(min=1) * GROUP_ALIGN
+    end = size.cumsum(0)
+    start = end - size
+    # The slack rows, zeros, close the last group (a fill, not a copy from
+    # the host, which would wait for the device).
+    end = torch.cat((end[:-1], end.new_full((1,), rows)))
+    flat = choice.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    expert = flat[order]
+    first = counts.cumsum(0) - counts  # each expert's first pair in `order`
+    within = torch.arange(pairs, device=flat.device) - first[expert]
+    dest = torch.empty_like(order)
+    dest[order] = start[expert] + within
+    return dest, end.to(torch.int32), rows
+
+
+class _Dispatch(torch.autograd.Function):
+    """x [T, D] -> the grouped buffer [M, D]: row dest[t k + j] holds x[t],
+    the padding rows zeros. Its backward sums each token's k rows, with fp32
+    accumulation, rounded once."""
+
+    @staticmethod
+    def forward(ctx, x, dest, rows: int, k: int):
+        ctx.save_for_backward(dest)
+        ctx.k = k
+        out = x.new_zeros(rows, x.shape[1])
+        out[dest.view(-1, k)] = x.unsqueeze(1)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dest,) = ctx.saved_tensors
+        g = grad.index_select(0, dest)
+        return g.view(-1, ctx.k, g.shape[1]).sum(1), None, None, None
+
+
+def grouped_mm(a: torch.Tensor, b: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """a [M, K] in groups of rows ending at offs [E] (int32, the last M),
+    b [E, K, N] -> [M, N]: each group times its expert's matrix. On the card
+    torch's `_grouped_mm`, bf16 only; on the CPU `plain_grouped_mm`."""
+    if not a.is_cuda:
+        return plain_grouped_mm(a, b, offs)
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"the grouped expert products run in bfloat16 on the card, not "
+                        f"{a.dtype} x {b.dtype}")
+    return torch._grouped_mm(a, b, offs=offs)
+
+
+def plain_grouped_mm(a: torch.Tensor, b: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """`grouped_mm` as a loop of plain products (reads the offsets on the
+    host)."""
+    parts, start = [], 0
+    for e, end in enumerate(offs.tolist()):
+        parts.append(a[start:end] @ b[e])
+        start = end
+    return torch.cat(parts)
+
+
+def _dropless(h, router, w1, w3, w2, config):
+    b, s, d = h.shape
+    x = h.reshape(-1, d)
+    k = config.n_experts_per_tok
+    with span(MOE_ROUTE):
+        gate, choice, counts, probs = route_topk(x, router, config)
+        dest, offs, rows = group_layout(choice, counts, config.n_experts)
+        sums = torch.stack([counts.float(), probs.sum(0)])
+        if counting():
+            count(EXPERT_LOAD, counts.max() * (config.n_experts / choice.numel()))
+    xs = _Dispatch.apply(x, dest, rows, k)
+
+    def products(xs, w1, w3, w2):
+        with span(MOE_EXPERTS):
+            dtype = config.dtype
+            gate = F.silu(grouped_mm(xs, w1.to(dtype), offs))
+            up = grouped_mm(xs, w3.to(dtype), offs)
+            return grouped_mm(gate * up, w2.to(dtype), offs)
+
+    y = backward_span(MOE_EXPERTS_GRAD, products, xs, w1, w3, w2)
+    y = y.index_select(0, dest).view(-1, k, d) * gate.to(config.dtype)[..., None]
+    return y.sum(1).view(b, s, d), sums
+
+
+def dropless_mlp(h: torch.Tensor, router: torch.Tensor, experts: Dict[str, torch.Tensor],
+                 config) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dropless top-k MoE on the normed hidden states h [b, s, D]
+    (compute dtype): (out [b, s, D], the layer's [2, E] stack of pairs and
+    probability sums per expert, for `balance_loss`). `router` [D, E];
+    `experts` the layer's w1, w3 [E, D, F] and w2 [E, F, D]. See the module
+    docstring."""
+    with span(MOE):
+        return backward_span(
+            MOE_GRAD, lambda h, r, w1, w3, w2: _dropless(h, r, w1, w3, w2, config),
+            h, router, experts["w1"], experts["w3"], experts["w2"])
+
+
+def balance_loss(sums: torch.Tensor, tokens: int, config) -> torch.Tensor:
+    """The pooled load-balancing loss from the layers' summed [2, E] stacks
+    over `tokens` tokens a layer: E * sum_e (C_e / (L T)) * (P_e / (L T))."""
+    rows = config.n_layers * tokens
+    return config.n_experts * ((sums[0] / rows) * (sums[1] / rows)).sum()

@@ -114,6 +114,8 @@ def loopback(model: Transformer, n_stages: int) -> Transformer:
     process (LoopbackStages)."""
     if model.mesh is not None or model.stages is not None:
         raise ValueError("the loopback pipeline takes an unsharded model")
+    if model.config.unsharded_only:
+        raise ValueError("the dropless MoE layer and qk-norm run unsharded only")
     if model.config.n_layers % n_stages:
         raise ValueError(f"n_layers={model.config.n_layers} not divisible by "
                          f"pipeline={n_stages}")

@@ -47,6 +47,8 @@ from training_operator_tpu_torch.observe.spans import (
     FORWARD,
     OPTIMIZER,
     STEP,
+    collect_counts,
+    emit_counts,
     span,
 )
 from training_operator_tpu_torch.trainer.mesh import AXIS_ORDER
@@ -300,8 +302,9 @@ def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None,
     on the step's device (the DataLoader puts it there); under a mesh it is
     this rank's rows, and the state must be sharded on `mesh`. A pipelined
     model's backward is its schedule's (pipeline.pipeline_loss). Under a
-    profiler the step, its loss, its backward and the optimizer are ranges
-    (observe/spans.py)."""
+    profiler the step, its loss, its backward and the optimizer are ranges,
+    and the counters the forward computes are written into the trace at the
+    step's end, after one host sync (observe/spans.py)."""
     device = resolve_device(device)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -315,7 +318,7 @@ def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None,
             params = dict(model.named_parameters())
             for p in params.values():
                 p.grad = None
-            with span(FORWARD):
+            with span(FORWARD), collect_counts() as counts:
                 loss = loss_fn(model, batch, config)
             with span(BACKWARD), span(BACKWARD_WAIT):
                 loss.backward()
@@ -326,6 +329,7 @@ def make_train_step(config: TransformerConfig, optimizer: AdamW, device=None,
                 grad_norm = optimizer.update(grads, state.opt_state, params, mesh, model.specs)
             for p in params.values():
                 p.grad = None
+            emit_counts(counts)
             state.step += 1
             return state, {"loss": loss.detach(), "grad_norm": grad_norm, "step": state.step}
 
