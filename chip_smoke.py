@@ -16,7 +16,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             with SYNCS (the mbarrier ring) for the fp32 sources, the
             forward's "mma.sync-3xtf32-stream" and dq's and dk/dv's
             "mma.sync-3xtf32-ring", and HGMMA and UTMALDG for the head's
-            "wgmma-3xtf32+tma" (kernels.DESIGN_SASS); and the
+            "wgmma-3xtf32+tma", and 128-bit global loads and stores
+            (LDG.128, STG.128) for clip + AdamW's "multi-tensor-stream"
+            (kernels.DESIGN_SASS, kernels.required_sass); and the
             same per kernel instantiation, with the count of each type's. Any
             instantiation without its design's instructions, or any spill,
             fails the run.
@@ -223,6 +225,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             alone). Fails where the kernel's error passes 4x SGEMM's or
             1/100 of TF32's. Phase 4 holds each step to 2 logits, 1 dX and
             1 dW launches (remat_head), phase 14 the same.
+18. adamw    the fused clip + AdamW (trainer/adamw.py on
+            csrc/adamw_fp32.cu: the norm's two passes and the update) over
+            the parameters of each configuration in BENCHMARK.json, in fp32
+            (bench.bench_adamw): first one fused step against the loop of
+            torch ops (adamw.plain_update) from the same first values, a
+            parameter's tensors at a time; fails where p, mu, nu or the norm
+            differs by more than ADAMW_TOL of the largest magnitude (the
+            `errors` of the row). Then the step's ms and the norm's, means
+            of 10 calls by CUDA events, beside the bound (32 bytes a
+            parameter at 3.35 TB/s), the loop's ms and torch's own
+            multi-tensor kernels' (`library_ms`: _foreach_norm and
+            _fused_adamw_). Phase 4 holds each step to one launch of each
+            pass; tests/test_torch_cuda.py holds the kernels to the loop at
+            small sizes.
 
 The last lines are the `kernels` JSON line, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. The `kernels` line has a row per
@@ -232,7 +248,8 @@ keys, at [1, 4096, 8, 256]; the same for the fp16 instantiation in the
 `_fp16` and `_fp16_d256` keys), a row per fp32 kernel (`<name>_fp32`: phase 14's launches
 and the same fields in fp32) and a row per head product (`head_<product>`:
 phase 4's launches, phase 17's times, bounds, SGEMM's ms and float64
-errors per cell shape).
+errors per cell shape) and a row for clip + AdamW (`adamw`: phase 4's
+launches, phase 18's times and bounds per configuration).
 
 Tolerances, bf16 kernel against the plain version in fp32 on the same bf16
 inputs:
@@ -378,6 +395,14 @@ GRAD_TOL = 2e-2
 # products drop ~2^-22 of each term, so they sit far inside both.
 FP32_OUT_TOL = 2e-5
 FP32_GRAD_TOL = 2e-4
+
+# Phase 18's gate, the fused clip + AdamW against the loop of torch ops
+# from the same first values: max |difference| over the largest magnitude
+# of p, mu, nu and the norm (tests/test_torch_cuda.py's bar). The update
+# takes the loop's roundings op for op, and its clip factor differs only by
+# the norm's, whose fp64 sum in a fixed order lies within ~1e-7 of the
+# loop's fp32 sum.
+ADAMW_TOL = 1e-6
 
 # Phase 14's gates, the fp32 flagship through the fp32 kernels against the
 # same state through the plain attention path: both run every product in
@@ -1321,6 +1346,34 @@ def run_head(card) -> dict:
     return rows
 
 
+def run_adamw(card) -> dict:
+    """Phase 18; see the module docstring. Returns {configuration: fields}."""
+    import torch
+
+    from benchmark import families
+    from training_operator_tpu_torch.trainer import bench
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        configs = json.load(f)["configs"]
+    rows = {}
+    for entry in configs:
+        with open(os.path.join(root, entry["file"])) as f:
+            config = json.load(f)
+        family = families.load(root, config.get("family", families.DEFAULT))
+        row = bench.bench_adamw(family.param_shapes(family.dims(config)))
+        log(f"adamw: {entry['name']} " + json.dumps(row))
+        if row["launches"] != {"sumsq": 1, "update": 1}:
+            raise AssertionError(f"adamw at {entry['name']}: launches a call {row['launches']}")
+        if max(row["errors"].values()) > ADAMW_TOL:
+            raise AssertionError(f"adamw at {entry['name']}: the kernels differ from the loop "
+                                 f"by more than {ADAMW_TOL}: {row['errors']}")
+        rows[entry["name"]] = row
+        torch.cuda.empty_cache()
+    log(f"adamw: done on {card}")
+    return rows
+
+
 def kernel_type(mangled: str) -> str:
     """The element type of a kernel instantiation from its mangled name:
     fp16 (`__half`) or bf16 (`__nv_bfloat16`) for the wgmma kernels, fp32
@@ -1351,9 +1404,11 @@ def run_build() -> dict:
         need = kernels.DESIGN_SASS[kernels.DESIGN[src]]
         by_type = {}
         for f, n in fns.items():
-            if "_kernel" in f:
-                by_type.setdefault(kernel_type(f), []).append(min(n[op] for op in need))
-        log(f"build: {src} instantiations by type, each with {' and '.join(need)}: "
+            required = kernels.required_sass(src, f)
+            if "_kernel" in f and required:
+                by_type.setdefault(kernel_type(f), []).append(min(n[op] for op in required))
+        log(f"build: {src} instantiations by type, each with {' and '.join(need)} "
+            f"(or what kernels.KERNEL_SASS names): "
             + ", ".join(f"{t} {len(v)} (fewest {min(v)})" for t, v in sorted(by_type.items())))
     missing = kernels.missing_sass(per_kernel)
     if missing:
@@ -1375,7 +1430,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from training_operator_tpu_torch.trainer import bench, flash, head_gemm, kernels
+    from training_operator_tpu_torch.trainer import adamw, bench, flash, head_gemm, kernels
     from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset
     from training_operator_tpu_torch.trainer.train import (
         init_train_state,
@@ -1459,11 +1514,13 @@ def main() -> int:
     head_per_step = {"logits": 2, "dx": 1, "dw": 1}  # remat_head: the logits recomputed
     flash.reset_launches()
     head_gemm.reset_launches()
+    adamw.reset_launches()
     losses, times = [], []
     torch.cuda.reset_peak_memory_stats()
     data = first
     for i in range(6):
         before, head_before = dict(flash.launches), dict(head_gemm.launches)
+        adamw_before = dict(adamw.launches)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
@@ -1479,6 +1536,10 @@ def main() -> int:
         if head_grew != head_per_step:
             raise AssertionError(f"step {i}: head launches grew by {head_grew}, expected "
                                  f"{head_per_step}")
+        adamw_grew = {n: adamw.launches[n] - adamw_before[n] for n in adamw.launches}
+        if adamw_grew != {"sumsq": 1, "update": 1}:
+            raise AssertionError(f"step {i}: clip + AdamW launches grew by {adamw_grew}, "
+                                 "expected one of each pass")
         if not torch.isfinite(metrics["loss"]) or not torch.isfinite(metrics["grad_norm"]):
             raise AssertionError(f"step {i}: non-finite loss or grad norm: {metrics}")
         losses.append(loss)
@@ -1500,6 +1561,7 @@ def main() -> int:
     mfu = fps / (step_ms / 1e3) / bench.PEAK_BF16_FLOPS["H100"]
     train_launches = dict(flash.launches)
     head_launches = dict(head_gemm.launches)
+    adamw_launches = dict(adamw.launches)
     phase4 = {"step_ms": step_ms, "tokens_s": tokens_s,
               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"train: {step_ms:.2f} ms/step (mean of {len(times)}), {tokens_s:.1f} tokens/s, "
@@ -1581,6 +1643,9 @@ def main() -> int:
     # 17. head
     head = run_head(card)
 
+    # 18. adamw
+    optimizer_rows = run_adamw(card)
+
     # report
     sass = build["sass"]
     replaces = {
@@ -1661,6 +1726,21 @@ def main() -> int:
             "bound_rule": bench.FLOP_RULES[torch.float32],
             "cells": by_shape,
         })
+    src = "adamw_fp32.cu"
+    rows.append({
+        "name": "adamw",
+        "route": "cuda",
+        "design": kernels.DESIGN[src],
+        "ldg128": sass[src]["LDG.128"],
+        "stg128": sass[src]["STG.128"],
+        "source": f"training_operator_tpu_torch/trainer/csrc/{src}",
+        "replaces": "none: the JAX optimizer is optax on XLA (training_operator_tpu/trainer/"
+                    "train.py)",
+        "launches": adamw_launches,
+        "bound_by": "bytes",
+        "bound_rule": f"{bench.ADAMW_BYTES} bytes a parameter at 3.35 TB/s",
+        "configs": optimizer_rows,
+    })
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

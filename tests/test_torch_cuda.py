@@ -723,3 +723,125 @@ def test_a_dropless_step_takes_no_host_sync(card):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(metrics["loss"]).item()
+
+
+# The fused optimizer's tensors (trainer/adamw.py): one element and three
+# (scalar only), 4097 (float4 and a scalar tail of one) and 2^20 + 5 (16
+# chunks of 65,536 and a ragged 17th); "odd", p, g, mu and nu each a view
+# from element 1 of its storage (a scalar head of three, then float4);
+# "odd p", p alone at element 1 (scalar throughout).
+ADAMW_LAYOUTS = {"one": (1, (0, 0, 0, 0)), "three": (3, (0, 0, 0, 0)),
+                 "4097": (4097, (0, 0, 0, 0)), "2^20+5": ((1 << 20) + 5, (0, 0, 0, 0)),
+                 "odd": (5000, (1, 1, 1, 1)), "odd p": (5000, (1, 0, 0, 0))}
+
+
+def _adamw_tensors(seed, scale):
+    from training_operator_tpu_torch.trainer.train import AdamWState
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params, grads, mu, nu = {}, {}, {}, {}
+    for name, (n, offsets) in ADAMW_LAYOUTS.items():
+        p, gr, m, v = (torch.zeros(n + o, device="cuda")[o:] for o in offsets)
+        p.copy_(torch.randn(n, generator=g, device="cuda"))
+        gr.copy_(torch.randn(n, generator=g, device="cuda") * scale)
+        params[name], grads[name], mu[name], nu[name] = p, gr, m, v
+    return params, grads, AdamWState(count=0, mu=mu, nu=nu)
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("case", ["above-clip", "below-clip", "lr0-first-step"])
+def test_fused_adamw_matches_the_loop(card, case):
+    """Three steps of the fused clip + AdamW against the loop of torch ops
+    (`adamw.plain_update` and the loop's norm) on the same card: p, mu, nu
+    and the norm within 1e-6 (max difference over the largest magnitude;
+    the kernels take the loop's roundings, the norm sums in fp64 in another
+    order), under set_sync_debug_mode("error"), one launch of each pass a
+    step, no memory kept beyond 1 MiB; at lr 0 (the warmup's first step) p
+    stays as it was, bit for bit."""
+    from training_operator_tpu_torch.trainer import adamw
+    from training_operator_tpu_torch.trainer.train import AdamW, AdamWState
+
+    scale, warmup = {"above-clip": (100.0, 0), "below-clip": (1e-4, 0),
+                     "lr0-first-step": (1.0, 2)}[case]
+    params, grads, state = _adamw_tensors(0, scale)
+    first = {n: p.clone() for n, p in params.items()}
+    ref = {n: p.clone() for n, p in params.items()}
+    ref_state = AdamWState(count=0, mu={n: t.clone() for n, t in state.mu.items()},
+                           nu={n: t.clone() for n, t in state.nu.items()})
+    names = list(params)
+    opt = AdamW(learning_rate=1e-3, warmup_steps=warmup, total_steps=10)
+    for i in range(3):
+        adamw.reset_launches()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            norm = opt.update(grads, state, params)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.cuda.memory_allocated() - before <= 1 << 20
+        assert adamw.launches == {"sumsq": 1, "update": 1}
+        want = torch.sqrt(sum(grads[n].float().square().sum() for n in names))
+        adamw.plain_update([ref[n] for n in names], [grads[n] for n in names],
+                           [ref_state.mu[n] for n in names], [ref_state.nu[n] for n in names],
+                           want, **opt.advance(ref_state))
+        assert adamw.launches == {"sumsq": 1, "update": 1}
+        assert _rel(norm, want) <= 1e-6
+        assert (want.item() >= 1.0) == (case != "below-clip")
+        for n in names:
+            for got, exp in ((params[n], ref[n]), (state.mu[n], ref_state.mu[n]),
+                             (state.nu[n], ref_state.nu[n])):
+                assert _rel(got, exp) <= 1e-6, (case, i, n)
+            if case == "lr0-first-step" and i == 0:
+                assert torch.equal(params[n], first[n]), n
+
+
+@pytest.mark.parametrize("case,reason", [("bfloat16", "not float32"),
+                                         ("transposed", "not contiguous")])
+def test_tensors_on_the_card_that_the_kernels_refuse_raise(card, case, reason):
+    """No tensor on the card falls back to the loop: one the kernels refuse
+    raises, naming the parameter and why, and nothing is updated."""
+    from training_operator_tpu_torch.trainer import adamw
+    from training_operator_tpu_torch.trainer.train import AdamW
+
+    w = torch.randn(64, 48, device="cuda")
+    w = {"bfloat16": w.bfloat16(), "transposed": w.t()}[case]
+    params, grads = {"w": w}, {"w": torch.ones_like(w)}
+    opt = AdamW(learning_rate=1e-3, warmup_steps=0)
+    state = opt.init(params)
+    first = w.clone()
+    adamw.reset_launches()
+    with pytest.raises(ValueError, match=f"^w: .*refused: {reason}$"):
+        opt.update(grads, state, params)
+    assert adamw.launches == {"sumsq": 0, "update": 0} and torch.equal(w, first)
+
+
+def test_fused_global_norm_is_the_same_bit_for_bit(card):
+    """The norm's passes sum in a fixed order with no atomics: the same
+    gradients give the same norm and the same per-tensor sums every time,
+    within 1e-6 of the loop's norm."""
+    from training_operator_tpu_torch.trainer import adamw
+    from training_operator_tpu_torch.trainer.train import global_norm
+
+    _, grads, _ = _adamw_tensors(1, 1.0)
+    norms = [global_norm(grads) for _ in range(3)]
+    sums = [adamw.square_sums(list(grads.values()))[0] for _ in range(2)]
+    assert all(torch.equal(n, norms[0]) for n in norms) and torch.equal(sums[0], sums[1])
+    want = torch.sqrt(sum(t.square().sum() for t in grads.values()))
+    assert _rel(norms[0], want) <= 1e-6
+
+
+def test_a_traced_step_on_the_card_fuses_every_parameter(card):
+    """A traced train step writes `train.optimizer.fused_share=1.0`: every
+    parameter of the decoder went through the fused kernels."""
+    from training_operator_tpu_torch.observe import spans
+
+    _, _, state, step, batch = _small_train("save_attn_qkv")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.name.startswith(spans.OPTIMIZER_FUSED_SHARE)]
+    assert names == [spans.OPTIMIZER_FUSED_SHARE + "=1.0"]

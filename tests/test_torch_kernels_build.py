@@ -62,7 +62,9 @@ def test_tag_ignores_unlisted_files(csrc_copy):
 # barriers and the register hand-over; for wgmma-3xtf32+tma (the head's
 # products) TMA loads through the mbarrier ring, the tf32 split, the tf32
 # wgmma, the proxy fence before wgmma reads the split planes, and the
-# register hand-over.
+# register hand-over; for multi-tensor-stream (clip and AdamW) the table's
+# rows found by binary search, float4 accesses, 64-bit offsets, a
+# fixed-order block sum and IEEE division and square root.
 DESIGN_REQUIRES = {
     "wgmma+tma": ('#include "sm90_common.cuh"', "tma_load_4d", "wgmma_", "reg_alloc"),
     "wgmma-3xtf32+tma": ('#include "flash_fp32.cuh"', '#include "sm90_common.cuh"',
@@ -74,6 +76,8 @@ DESIGN_REQUIRES = {
     "mma.sync-3xtf32-stream": ('#include "flash_fp32.cuh"', '#include "sm90_common.cuh"',
                                "mma3(", "stage_a_planes<", "c_to_a_tf32(", "cp_async_arrive(",
                                "mbar_wait(", "named_bar_sync(", "reg_alloc"),
+    "multi-tensor-stream": ("struct Tensor", "tensor_of(", "float4", "long long",
+                            "block_sum(", "__fdiv_rn(", "__fsqrt_rn("),
 }
 # The helpers that split an operand as they load it from a row-major tile:
 # the ring design splits each element once instead.
@@ -86,6 +90,10 @@ DESIGN_FORBIDS = {
     "wgmma-3xtf32+tma": ("mma_tf32(", "mma3(", "mma3_nk<", "mma3_kn<"),
     "mma.sync-3xtf32-ring": SPLIT_AS_LOADED,
     "mma.sync-3xtf32-stream": ("load_a(", "load_rows_f32", "cp_wait"),
+    # No atomics (the norm is summed in a fixed order) and no fast-math
+    # division, square root or reciprocal.
+    "multi-tensor-stream": ("atomicAdd", "atomicCAS", "__fdividef", "rsqrtf", "__frsqrt_rn",
+                            "sqrtf("),
 }
 
 
@@ -105,6 +113,9 @@ def test_each_source_names_its_design(src):
         # fp32 operands in the 3xTF32 split on wgmma: three products a k step.
         assert "m64n128k8.f32.tf32.tf32" in text and "_fp32(" in text
         assert "mma.sync." not in text and "ldmatrix" not in text
+    elif design == "multi-tensor-stream":
+        # A stream of fp32 elements: no products, one launch a pass.
+        assert "mma" not in text and "_fp32(" in text
     else:
         # The fp32 kernels run no product outside the 3xTF32 split.
         assert "wgmma" not in text and "mma_tf32(" not in text and "_fp32(" in text
@@ -132,14 +143,18 @@ def test_ring_sources_meet_the_block_once(src):
 def test_fp32_designs():
     """The fp32 flash forward is the stream design; dq and dk/dv are the
     ring design; both are held to their TF32 products and their mbarriers.
-    The head's fp32 products are wgmma-3xtf32+tma, held to wgmma and TMA."""
+    The head's fp32 products are wgmma-3xtf32+tma, held to wgmma and TMA;
+    clip and AdamW are multi-tensor-stream, held to 128-bit loads and
+    stores."""
     assert {src: d for src, d in kernels.DESIGN.items() if src.endswith("_fp32.cu")} == {
         "flash_fwd_fp32.cu": "mma.sync-3xtf32-stream",
         "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32-ring",
         "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
         "head_gemm_fp32.cu": "wgmma-3xtf32+tma",
+        "adamw_fp32.cu": "multi-tensor-stream",
     }
     assert kernels.DESIGN_SASS["wgmma-3xtf32+tma"] == ("HGMMA", "UTMALDG")
+    assert kernels.DESIGN_SASS["multi-tensor-stream"] == ("LDG.128", "STG.128")
     assert kernels.DESIGN_SASS["mma.sync-3xtf32-ring"] == ("HMMA.TF32", "SYNCS")
     assert kernels.DESIGN_SASS["mma.sync-3xtf32-stream"] == ("HMMA.TF32", "SYNCS")
 
@@ -147,13 +162,16 @@ def test_fp32_designs():
 def test_every_entry_point_has_a_library():
     """Each flash kernel has a C entry point per type, in the wgmma source
     for bf16 and fp16 and in its fp32 source for fp32; the head's three
-    products have theirs in head_gemm_fp32.cu."""
+    products have theirs in head_gemm_fp32.cu, clip and AdamW theirs in
+    adamw_fp32.cu."""
     for name, src in kernels._LIB_OF.items():
         assert src in kernels.SOURCES and f'extern "C" int {name}(' in (
             kernels.CSRC / src).read_text(), name
     assert set(kernels._LIB_OF) == set(kernels._SIGNATURES)
-    assert len(kernels._SIGNATURES) == 3 * len(kernels.TYPES) + len(kernels.HEAD_ENTRIES)
+    assert len(kernels._SIGNATURES) == (3 * len(kernels.TYPES) + len(kernels.HEAD_ENTRIES)
+                                        + len(kernels.ADAMW_SIGNATURES))
     assert {kernels._LIB_OF[name] for name in kernels.HEAD_ENTRIES} == {"head_gemm_fp32.cu"}
+    assert {kernels._LIB_OF[name] for name in kernels.ADAMW_SIGNATURES} == {"adamw_fp32.cu"}
 
 
 def test_sass_counts_reads_cuobjdump(monkeypatch, tmp_path):
@@ -174,9 +192,11 @@ def test_sass_counts_reads_cuobjdump(monkeypatch, tmp_path):
 
     monkeypatch.setattr(kernels.subprocess, "run", fake_run)
     counts = kernels.sass_counts({"fwd.cu": "a.so", "dq.cu": "b.so", "fp32.cu": "c.so"})
-    assert counts == {"fwd.cu": {"HGMMA": 2, "UTMALDG": 1, "HMMA.TF32": 0, "SYNCS": 0},
-                      "dq.cu": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 0, "SYNCS": 0},
-                      "fp32.cu": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 2, "SYNCS": 1}}
+    none = {"LDG.128": 0, "STG.128": 0}
+    assert counts == {"fwd.cu": {"HGMMA": 2, "UTMALDG": 1, "HMMA.TF32": 0, "SYNCS": 0, **none},
+                      "dq.cu": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 0, "SYNCS": 0, **none},
+                      "fp32.cu": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 2, "SYNCS": 1,
+                                  **none}}
 
 
 def test_kernel_sass_counts_splits_by_function(monkeypatch, tmp_path):
@@ -193,11 +213,12 @@ def test_kernel_sass_counts_splits_by_function(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels.subprocess, "run", lambda cmd, **kwargs:
                         subprocess.CompletedProcess(cmd, 0, stdout=sass, stderr=""))
     per_kernel = kernels.kernel_sass_counts({"flash_fwd.cu": "a.so"})
+    none = {"LDG.128": 0, "STG.128": 0}
     assert per_kernel == {"flash_fwd.cu": {
         "_ZN5flash10fwd_kernelILi256ELb1EEEv": {"HGMMA": 1, "UTMALDG": 2, "HMMA.TF32": 0,
-                                                "SYNCS": 0},
+                                                "SYNCS": 0, **none},
         "_ZN5flash10fwd_kernelILi64ELb1EEEv": {"HGMMA": 0, "UTMALDG": 0, "HMMA.TF32": 0,
-                                               "SYNCS": 0}}}
+                                               "SYNCS": 0, **none}}}
     # The instantiation of another form fails its source's design.
     assert kernels.missing_sass(per_kernel) == {
         "flash_fwd.cu": ["_ZN5flash10fwd_kernelILi64ELb1EEEv"]}
@@ -222,3 +243,26 @@ def test_missing_sass_holds_each_design_to_its_instructions():
     assert kernels.missing_sass({"flash_fwd_fp32.cu": {"_ZN5flash14fwd_f32_kernelI": wgmma},
                                  "flash_fwd.cu": {}}) == {
         "flash_fwd_fp32.cu": ["_ZN5flash14fwd_f32_kernelI"], "flash_fwd.cu": ["no kernel"]}
+
+
+def test_the_optimizer_kernels_move_128_bits_an_access():
+    """The update must show 128-bit loads and stores, the norm's first pass
+    128-bit loads; its one-block finishing pass needs neither. A scalar
+    build of either stream fails."""
+    zero = dict.fromkeys(kernels.SASS_OPS, 0)
+    update, sumsq, finish = ("_ZN5adamw19adamw_update_kernelEPKNS_6TensorEiPKfNS_5HyperE",
+                             "_ZN5adamw12sumsq_kernelEPKNS_6TensorEiPd",
+                             "_ZN5adamw19sumsq_finish_kernelEPKNS_6TensorEixPKdPfS5_")
+    vector = dict(zero, **{"LDG.128": 12, "STG.128": 12})
+    loads = dict(zero, **{"LDG.128": 4})
+    assert kernels.missing_sass({"adamw_fp32.cu": {update: vector, sumsq: loads,
+                                                   finish: zero}}) == {}
+    assert kernels.missing_sass({"adamw_fp32.cu": {update: loads, sumsq: zero,
+                                                   finish: zero}}) == {
+        "adamw_fp32.cu": [update, sumsq]}
+    counts = kernels._counts("  /*0200*/  LDG.E.128.CONSTANT R8, desc[UR4][R2.64] ;\n"
+                             "  /*0210*/  LDG.E.128 R12, desc[UR4][R4.64] ;\n"
+                             "  /*0220*/  STG.E.128 desc[UR4][R4.64], R12 ;\n"
+                             "  /*0230*/  LDG.E R3, desc[UR4][R6.64] ;\n")
+    assert (counts["LDG.128"], counts["STG.128"]) == (2, 1)
+    assert not any("fast" in flag for flag in kernels.NVCC_FLAGS)

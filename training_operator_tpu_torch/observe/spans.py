@@ -37,7 +37,10 @@ active), gathered with one host sync at the end of the step
 (`emit_counts`) and written into the trace as host events named
 `<counter>=<value>` (`counter_event`). `EXPERT_LOAD` is the busiest
 expert's (token, choice) pairs over the mean, E / (T k) times the largest
-count, once a layer and step.
+count, once a layer and step. A value the host already holds is written
+at once by `host_count`, with no sync: `OPTIMIZER_FUSED_SHARE`, the share
+of parameter elements the optimizer's fused kernels updated (trainer/
+adamw.py), once a step.
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ MOE_EXPERTS = "model.moe.experts"
 MOE_EXPERTS_GRAD = "model.moe.experts.grad"
 MOE_NAMES = (MOE, MOE_GRAD, MOE_ROUTE, MOE_EXPERTS, MOE_EXPERTS_GRAD)
 EXPERT_LOAD = "model.moe.expert_load_max"
+OPTIMIZER_FUSED_SHARE = "train.optimizer.fused_share"
 
 # The step's counters while it collects them: (name, 0-d device tensor).
 _COUNTS: ContextVar[Optional[List[Tuple[str, torch.Tensor]]]] = ContextVar(
@@ -185,6 +189,17 @@ def counter_event(name: str, value: float) -> str:
     return f"{name}={value!r}"
 
 
+def host_count(name: str, value: float) -> None:
+    """Writes a host value of counter `name` into the trace as an empty
+    range `<name>=<value>` while a profiler is active. It takes a Python
+    number, never a device tensor, so it reads nothing from the card."""
+    if not isinstance(value, (int, float)):
+        raise TypeError(f"counter {name} takes a host number; got {type(value).__name__}")
+    if torch.autograd._profiler_enabled():
+        with _Range(counter_event(name, float(value))):
+            pass
+
+
 def emit_counts(counts: Optional[List[Tuple[str, torch.Tensor]]]) -> None:
     """Writes the collected counters into the trace, each as an empty range
     `<name>=<value>`, after one host sync for all of them."""
@@ -192,5 +207,4 @@ def emit_counts(counts: Optional[List[Tuple[str, torch.Tensor]]]) -> None:
         return
     values = torch.stack([v for _, v in counts]).tolist()
     for (name, _), value in zip(counts, values):
-        with _Range(counter_event(name, value)):
-            pass
+        host_count(name, value)

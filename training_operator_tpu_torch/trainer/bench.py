@@ -769,6 +769,113 @@ def head_float64_errors(t: int, d: int, v: int, sample: int = 256,
     return result
 
 
+# Bytes of device memory the fused clip + AdamW moves a parameter: g read
+# for the norm, then p, g, mu and nu read and p, mu and nu written.
+ADAMW_BYTES = 32
+
+
+def _max_rel(got: torch.Tensor, want: torch.Tensor, chunk: int = 1 << 26) -> float:
+    """max |got - want| / max |want|, a run of `chunk` elements at a time, so
+    its temporaries stay small beside a multi-GB tensor."""
+    pairs = list(zip(got.reshape(-1).split(chunk), want.reshape(-1).split(chunk)))
+    diff = torch.stack([(a.double() - b.double()).abs().max() for a, b in pairs]).max()
+    top = torch.stack([b.double().abs().max() for _, b in pairs]).max()
+    return (diff / top.clamp(min=1e-30)).item()
+
+
+def bench_adamw(shapes: Dict[str, tuple], iters: int = 10, loop_iters: int = 2,
+                device=None) -> Dict[str, Any]:
+    """Clip + AdamW over fp32 parameters, gradients and moments of `shapes`
+    on the card. First the kernels (trainer/adamw.py) against the loop of
+    torch ops (`adamw.plain_update` and the loop's norm) from the same first
+    values, one parameter's tensors at a time, so that the largest
+    configuration fits beside its state: `errors`, max |difference| over
+    the largest magnitude of p, mu, nu and the norm (and of the norm
+    against a float64 one, `norm_fp64`). Then times, means by CUDA events:
+    the fused step (`ms`: `AdamW.update` as the train step calls it, the
+    norm's two passes and the update; `iters` calls) and the norm's alone
+    (`norm_ms`), beside the step's bound (ADAMW_BYTES a parameter at the
+    card's peak bytes/s); the loop's step (`plain_ms`, `loop_iters` calls);
+    and torch's own multi-tensor kernels on the same tensors
+    (`library_ms`: `torch._foreach_norm`, then `torch._fused_adamw_` with
+    the clip factor as its device `grad_scale`, which also writes the
+    unscaled gradients back; `iters` calls, last, as they change g)."""
+    from training_operator_tpu_torch.trainer import adamw
+    from training_operator_tpu_torch.trainer.train import AdamW, AdamWState, global_norm
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("bench_adamw measures the card; no CUDA device given")
+    peak = _peak(PEAK_BYTES_PER_S, torch.cuda.get_device_name(device))
+    if peak is None:
+        raise ValueError("no published peak rates for this card: bounds need them")
+    names = list(shapes)
+    gen = torch.Generator(device=device)
+
+    def fill(i: int, role: int, t: torch.Tensor) -> torch.Tensor:
+        """Tensor `i`'s first values in `role` (p, g, mu, nu), in place, from
+        a seed of their own, so they can be made again."""
+        gen.manual_seed(4 * i + role)
+        t.normal_(generator=gen)
+        return {0: lambda: t.mul_(0.02), 1: lambda: t, 2: lambda: t.mul_(1e-3),
+                3: lambda: t.square_().mul_(1e-6)}[role]()
+
+    def first(role: int) -> Dict[str, torch.Tensor]:
+        return {n: fill(i, role, torch.empty(shapes[n], device=device))
+                for i, n in enumerate(names)}
+
+    params, grads = first(0), first(1)
+    state = AdamWState(count=0, mu=first(2), nu=first(3))
+    n = sum(p.numel() for p in params.values())
+    opt = AdamW(learning_rate=3e-4, warmup_steps=0)
+
+    hyper = opt.advance(AdamWState(count=4))
+    want = torch.sqrt(sum(grads[k].float().square().sum() for k in names))
+    exact = torch.sqrt(sum(c.double().square().sum() for k in names
+                           for c in grads[k].reshape(-1).split(1 << 26)))
+    _, norm = adamw.square_sums([grads[k] for k in names])
+    adamw.update([params[k] for k in names], [grads[k] for k in names],
+                 [state.mu[k] for k in names], [state.nu[k] for k in names], norm, **hyper)
+    errors = {"norm": _max_rel(norm, want), "norm_fp64": _max_rel(norm, exact),
+              "p": 0.0, "mu": 0.0, "nu": 0.0}
+    for i, k in enumerate(names):
+        ref = [fill(i, role, torch.empty_like(params[k])) for role in (0, 2, 3)]
+        adamw.plain_update([ref[0]], [grads[k]], [ref[1]], [ref[2]], want, **hyper)
+        for key, got, exp in zip(("p", "mu", "nu"), (params[k], state.mu[k], state.nu[k]), ref):
+            errors[key] = max(errors[key], _max_rel(got, exp))
+        del ref
+        torch.cuda.empty_cache()
+
+    adamw.reset_launches()
+    ms = cuda_time_ms(lambda: opt.update(grads, state, params), iters=iters, warmup=1)
+    fused = dict(adamw.launches)
+    norm_ms = cuda_time_ms(lambda: global_norm(grads), iters=iters, warmup=1)
+
+    lists = [[d[k] for k in names] for d in (params, grads, state.mu, state.nu)]
+
+    def plain():
+        loop_norm = torch.sqrt(sum(g.float().square().sum() for g in lists[1]))
+        adamw.plain_update(*lists, loop_norm, **opt.advance(state))
+
+    plain_ms = cuda_time_ms(plain, iters=loop_iters, warmup=1)
+    steps = [torch.ones((), device=device) for _ in names]
+
+    def library():
+        total = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(lists[1])))
+        torch._fused_adamw_(*lists, [], steps, lr=hyper["lr"], beta1=opt.b1, beta2=opt.b2,
+                            weight_decay=opt.weight_decay, eps=opt.eps, amsgrad=False,
+                            maximize=False, grad_scale=(total / opt.clip_norm).clamp(min=1.0),
+                            found_inf=None)
+
+    library_ms = cuda_time_ms(library, iters=iters, warmup=1)
+    bound_ms = ADAMW_BYTES * n / peak * 1e3
+    return {"params": n, "tensors": len(shapes), "ms": ms, "norm_ms": norm_ms,
+            "bound_ms": bound_ms, "ms_over_bound": ms / bound_ms,
+            "tb_per_s": ADAMW_BYTES * n / ms / 1e9, "plain_ms": plain_ms,
+            "library_ms": library_ms, "errors": errors,
+            "launches": {k: v // (iters + 1) for k, v in fused.items()}}
+
+
 # The operand patterns of `mma_sync_rate`, each a kernel of one block per
 # SM whose warps run `mma.sync` m16n8k8 TF32 on registers and time
 # themselves with clock64: "same" one A and one B into 8 independent sums;

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
            "flash_fwd_fp32.cu", "flash_bwd_dq_fp32.cu", "flash_bwd_dkv_fp32.cu",
-           "head_gemm_fp32.cu")
+           "head_gemm_fp32.cu", "adamw_fp32.cu")
 HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fp32.cuh")
 # How each source computes. The wgmma+tma sources hold the bf16 and fp16
 # instantiations of each kernel; the fp32 kernels run 3xTF32 products on
@@ -46,7 +46,8 @@ HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fp32.cuh")
 # The head's fp32 products (head_gemm_fp32.cu) are wgmma-3xtf32+tma: TMA
 # loads of raw fp32 tiles through an mbarrier ring, B split once per stage
 # into tf32 planes in shared memory, A split in registers, three wgmma per
-# k step.
+# k step. Clip and AdamW (adamw_fp32.cu) are multi-tensor-stream: every
+# tensor's chunks in one grid, a block a chunk, moved in 128-bit accesses.
 DESIGN = {
     "flash_fwd.cu": "wgmma+tma",
     "flash_bwd_dq.cu": "wgmma+tma",
@@ -55,17 +56,25 @@ DESIGN = {
     "flash_bwd_dq_fp32.cu": "mma.sync-3xtf32-ring",
     "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
     "head_gemm_fp32.cu": "wgmma-3xtf32+tma",
+    "adamw_fp32.cu": "multi-tensor-stream",
 }
 # The SASS instructions every kernel instantiation of a design must show
 # (`kernel_sass_counts`): Hopper's tensor-core wgmma (HGMMA) and TMA loads
 # (UTMALDG), or mma.sync on TF32 operands with the ring's mbarrier
-# operations (SYNCS).
+# operations (SYNCS), or 128-bit global loads and stores (LDG.128, STG.128)
+# for a stream that a scalar fallback would run at a fraction of its rate.
 DESIGN_SASS = {
     "wgmma+tma": ("HGMMA", "UTMALDG"),
     "wgmma-3xtf32+tma": ("HGMMA", "UTMALDG"),
     "mma.sync-3xtf32-ring": ("HMMA.TF32", "SYNCS"),
     "mma.sync-3xtf32-stream": ("HMMA.TF32", "SYNCS"),
+    "multi-tensor-stream": ("LDG.128", "STG.128"),
 }
+# Kernels held to less than their source's design, by a fragment of their
+# name: the global norm's first pass reads the gradients 128 bits at a time
+# but writes one sum a block, and its finishing pass (one block) reads and
+# writes a few sums a tensor.
+KERNEL_SASS = {"adamw_fp32.cu": {"sumsq_kernel": ("LDG.128",), "sumsq_finish_kernel": ()}}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -87,13 +96,23 @@ _KERNEL_SIGNATURES = {
 # stream; head_gemm.py).
 HEAD_ENTRIES = ("head_logits_fp32", "head_dx_fp32", "head_dw_fp32")
 _HEAD_SIGNATURE = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+# Clip and AdamW (adamw.py): the norm (table, rows, chunks, partials, sums,
+# norm, stream) and the update (table, rows, chunks, norm, clip_norm, lr,
+# b1, b2, bc1, bc2, eps, weight_decay, stream).
+_L = ctypes.c_longlong
+_D = ctypes.c_double
+ADAMW_SIGNATURES = {
+    "adamw_sumsq_fp32": (_P, _I, _L, _P, _P, _P, _P),
+    "adamw_update_fp32": (_P, _I, _L, _P, _D, _D, _D, _D, _D, _D, _D, _D, _P),
+}
 _SIGNATURES = {**{f"{k}_{t}": sig for k, sig in _KERNEL_SIGNATURES.items() for t in TYPES},
-               **dict.fromkeys(HEAD_ENTRIES, _HEAD_SIGNATURE)}
+               **dict.fromkeys(HEAD_ENTRIES, _HEAD_SIGNATURE), **ADAMW_SIGNATURES}
 # The library of each entry point: bf16 and fp16 in one wgmma source, fp32
 # in its own; the head's in head_gemm_fp32.cu.
 _LIB_OF = {**{f"{k}_{t}": f"{k}_fp32.cu" if t == "fp32" else f"{k}.cu"
               for k in _KERNEL_SIGNATURES for t in TYPES},
-           **dict.fromkeys(HEAD_ENTRIES, "head_gemm_fp32.cu")}
+           **dict.fromkeys(HEAD_ENTRIES, "head_gemm_fp32.cu"),
+           **dict.fromkeys(ADAMW_SIGNATURES, "adamw_fp32.cu")}
 
 
 @dataclass
@@ -172,13 +191,16 @@ def build() -> tuple:
     return outs, time.perf_counter() - t0, "".join(log)
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA.TF32", "SYNCS")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA.TF32", "SYNCS", "LDG.128", "STG.128")
 # What each op counts in a line of SASS: HMMA.TF32 is mma.sync with TF32
 # operands (HMMA.1688.F32.TF32 for m16n8k8); SYNCS an mbarrier operation
-# (init, arrive, phase check).
+# (init, arrive, phase check); LDG.128 and STG.128 a 128-bit global load or
+# store, whatever its cache qualifiers (LDG.E.128, LDG.E.128.CONSTANT).
 _SASS_PATTERNS = {"HGMMA": re.compile(r"HGMMA"), "UTMALDG": re.compile(r"UTMALDG"),
                   "HMMA.TF32": re.compile(r"HMMA\.\w+\.F32\.TF32"),
-                  "SYNCS": re.compile(r"\bSYNCS\.")}
+                  "SYNCS": re.compile(r"\bSYNCS\."),
+                  "LDG.128": re.compile(r"\bLDG\.E(?:\.\w+)*?\.128\b"),
+                  "STG.128": re.compile(r"\bSTG\.E(?:\.\w+)*?\.128\b")}
 
 
 def _sass(lib) -> str:
@@ -192,8 +214,8 @@ def _counts(text: str) -> Dict[str, int]:
 
 
 def sass_counts(libraries: Dict[str, Path]) -> Dict[str, Dict[str, int]]:
-    """{source: {"HGMMA": n, "UTMALDG": n, "HMMA.TF32": n, "SYNCS": n}}:
-    Hopper tensor-core (wgmma), TMA-load, TF32 mma.sync and mbarrier
+    """{source: {op: n for op in SASS_OPS}}: Hopper tensor-core (wgmma),
+    TMA-load, TF32 mma.sync, mbarrier and 128-bit global load and store
     instructions in each library's SASS, read with cuobjdump."""
     return {src: _counts(_sass(lib)) for src, lib in libraries.items()}
 
@@ -217,14 +239,23 @@ def kernel_sass_counts(libraries: Dict[str, Path]) -> Dict[str, Dict[str, Dict[s
     return counts
 
 
+def required_sass(src: str, kernel: str) -> tuple:
+    """The instructions kernel `kernel` (a mangled name) of source `src`
+    must show: its design's (DESIGN_SASS) unless KERNEL_SASS names it."""
+    for fragment, ops in KERNEL_SASS.get(src, {}).items():
+        if fragment in kernel:
+            return ops
+    return DESIGN_SASS[DESIGN[src]]
+
+
 def missing_sass(per_kernel: Dict[str, Dict[str, Dict[str, int]]]) -> Dict[str, list]:
     """{source: [kernel, ...]}: the kernel instantiations (mangled names
-    holding "_kernel") that lack an instruction their source's design
-    requires (DESIGN_SASS), and every source with no kernel at all."""
+    holding "_kernel") that lack an instruction they require
+    (`required_sass`), and every source with no kernel at all."""
     missing = {}
     for src, fns in per_kernel.items():
-        need = DESIGN_SASS[DESIGN[src]]
-        short = [f for f, n in fns.items() if "_kernel" in f and not all(n[op] for op in need)]
+        short = [f for f, n in fns.items()
+                 if "_kernel" in f and not all(n[op] for op in required_sass(src, f))]
         if short or not any("_kernel" in f for f in fns):
             missing[src] = short or ["no kernel"]
     return missing

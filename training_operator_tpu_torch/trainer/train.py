@@ -16,10 +16,13 @@ step for step:
   so the first step runs at lr 0 when the schedule starts at 0.
 
 Where JAX donates the state to the jitted step, the port updates the
-parameters and moments in place, a tensor of more than `UPDATE_CHUNK`
-elements one run of its leading dim at a time: the update is elementwise,
-so the numbers are the same, and its temporaries stay that size (a MoE
-expert stack of the flagship's width is 3.6 GB).
+parameters and moments in place (trainer/adamw.py): on the card as two
+multi-tensor passes of hand-written kernels, the norm's and the update's,
+which take float32, contiguous tensors of one shape across p, g, mu and nu
+and refuse any other with an error; on the CPU as a loop of torch ops
+(`adamw.plain_update`), the reference the kernels are held to. Under a
+profiler the step writes the share of elements the kernels updated into
+the trace (the counter `train.optimizer.fused_share`).
 
 Under a mesh (JAX `train.py:56-174`) the state holds this rank's shards
 (built straight into the shards, model.init_params) and the moments are
@@ -46,11 +49,14 @@ from training_operator_tpu_torch.observe.spans import (
     BACKWARD_WAIT,
     FORWARD,
     OPTIMIZER,
+    OPTIMIZER_FUSED_SHARE,
     STEP,
     collect_counts,
     emit_counts,
+    host_count,
     span,
 )
+from training_operator_tpu_torch.trainer import adamw
 from training_operator_tpu_torch.trainer.mesh import AXIS_ORDER
 from training_operator_tpu_torch.trainer.model import (
     Transformer,
@@ -65,10 +71,6 @@ from training_operator_tpu_torch.trainer.model import (
     spec_axes,
     zeros_sharded,
 )
-
-# The most elements AdamW.update treats at once (1 GiB of fp32).
-UPDATE_CHUNK = 1 << 28
-
 
 @dataclass
 class AdamWState:
@@ -137,22 +139,31 @@ class AdamW:
         norm of the raw `grads` (local shards under a mesh, laid out by
         `specs`, the model's)."""
         g_norm = global_norm(grads, mesh, specs)
-        clip = g_norm >= self.clip_norm
+        hyper = self.advance(state)
+        card = [n for n in params
+                if adamw.fused(n, params[n], grads[n], state.mu[n], state.nu[n])]
+        taken = set(card)
+        cpu = [n for n in params if n not in taken]
+        for run, names in ((adamw.update, card), (adamw.plain_update, cpu)):
+            if names:
+                run(*([d[n] for n in names] for d in (params, grads, state.mu, state.nu)),
+                    g_norm, **hyper)
+        total = sum(p.numel() for p in params.values())
+        host_count(OPTIMIZER_FUSED_SHARE,
+                   sum(params[n].numel() for n in card) / total if total else 0.0)
+        return g_norm
+
+    def advance(self, state: AdamWState) -> Dict[str, float]:
+        """Counts a step on `state` and returns its hyper-parameters as
+        `adamw.update` and `adamw.plain_update` take them: lr from the
+        schedule at the count before, the bias corrections at the count
+        after, rounded to fp32 as optax computes them."""
         lr = self.schedule(state.count)
         state.count += 1
         bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** state.count
         bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** state.count
-        for name, whole in params.items():
-            parts = -(-whole.numel() // UPDATE_CHUNK)
-            for p, g, mu, nu in zip(*(t.chunk(parts) for t in (
-                    whole, grads[name], state.mu[name], state.nu[name]))):
-                g = torch.where(clip, g / g_norm * self.clip_norm, g)
-                mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-                nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-                upd = (mu / bc1.item()) / ((nu / bc2.item()).sqrt_() + self.eps)
-                upd.add_(p, alpha=self.weight_decay)
-                p.add_(upd, alpha=-lr)
-        return g_norm
+        return dict(clip_norm=self.clip_norm, lr=lr, b1=self.b1, b2=self.b2, bc1=bc1.item(),
+                    bc2=bc2.item(), eps=self.eps, weight_decay=self.weight_decay)
 
 
 @dataclass
@@ -192,17 +203,31 @@ def global_norm(tensors: Dict[str, torch.Tensor],
                 mesh: Optional[DeviceMesh] = None,
                 specs: Optional[Specs] = None) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor, fp32, on their device.
-    Under a mesh the tensors are the local shards, laid out by `specs`, of
-    the parameters of the same names, and each element counts once: a shard
-    adds its squares on the one rank at coordinate 0 of every axis that
-    replicates it, then one all-reduce sums over the world."""
+    Tensors on the card have their sums from one multi-tensor pass
+    (adamw.square_sums; `adamw.fused` raises for one it refuses), CPU
+    tensors from torch ops. Under a mesh the tensors are the local shards,
+    laid out by `specs`, of the parameters of the same names, and each
+    element counts once: a shard adds its squares on the one rank at
+    coordinate 0 of every axis that replicates it, then one all-reduce sums
+    over the world."""
+    card = [n for n in tensors if adamw.fused(n, tensors[n])]
+    fused = {}
+    if card:
+        sums, norm = adamw.square_sums([tensors[n] for n in card])
+        if mesh is None and len(card) == len(tensors):
+            return norm
+        fused = dict(zip(card, sums.unbind()))
+
+    def square(name):
+        return fused[name] if name in fused else tensors[name].float().square().sum()
+
     if mesh is None:
-        return torch.sqrt(sum(t.float().square().sum() for t in tensors.values()))
+        return torch.sqrt(sum(square(name) for name in tensors))
     total = None
     for name, t in tensors.items():
         sharded = spec_axes(name, specs)
         owner = all(mesh.get_local_rank(a) == 0 for a in AXIS_ORDER if a not in sharded)
-        sq = t.float().square().sum() if owner else t.new_zeros((), dtype=torch.float32)
+        sq = square(name) if owner else t.new_zeros((), dtype=torch.float32)
         total = sq if total is None else total + sq
     dist.all_reduce(total)
     return torch.sqrt(total)
