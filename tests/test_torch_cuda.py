@@ -542,31 +542,56 @@ def test_operator_burst_on_the_card_equals_numpy(card):
     assert placer.device.type == "cuda"
 
 
-def test_bench_train_step_breakdown(card):
-    """bench_train_step at a small size returns the executed-MFU estimate
-    (remat on) and the first step's seconds; profile_train_step's phases,
-    read from the step's own ranges, hold every device op of its window:
-    forward, backward (autograd's device thread, by launch time) and
-    optimizer sum to the busy ms a step, with the head and the recompute
-    inside them."""
-    from training_operator_tpu_torch.trainer import bench
+def test_step_phases_hold_every_device_op_of_the_window(card):
+    """The benchmark's per-layer readers (benchmark/metrics, on
+    device_trace.from_profiler and program_spans.Spans) on three traced
+    steps of a small decoder inside a `bench.window` range, as
+    benchmark/run.py traces its window: forward, backward (autograd's device
+    thread, by launch time) and optimizer hold every device op of the
+    window, with the head and the recompute inside them."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from benchmark import device_trace, program_spans
+    from benchmark.metrics import reader
+    from benchmark.tiny import REPO
     from training_operator_tpu_torch.trainer.model import TransformerConfig
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_example_batch,
+        make_optimizer,
+        make_train_step,
+    )
 
     config = TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2,
                                n_kv_heads=2, d_ff=512, max_seq_len=256,
                                remat_policy="save_attn_qkv", remat_head=True)
-    out = bench.bench_train_step(config, 2, 256, steps=3, warmup=2)
-    assert "breakdown" not in out
-    assert out["mfu_executed_est"] == pytest.approx(out["mfu"] * 8 / 6)
-    assert out["compile_s"] > 0 and out["kernel_load"] in ("build", "cache", "loaded before")
-    prof = bench.profile_train_step(config, 2, 256, steps=3)
-    ph = prof["phases_ms"]
-    assert set(ph) == set(bench.PHASES)
-    assert all(ph[k] > 0 for k in ("forward", "backward", "optimizer", "head", "recompute"))
+    optimizer = make_optimizer(total_steps=10)
+    state = init_train_state(config, optimizer, device=card)
+    step_fn = make_train_step(config, optimizer, device=card)
+    data = make_example_batch(config, 2, 256, device=card)
+    state, _ = step_fn(state, data)
+    torch.cuda.synchronize()
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("bench.window"):
+            for _ in range(steps):
+                state, _ = step_fn(state, data)
+            torch.cuda.synchronize()
+    trace = device_trace.from_profiler(prof)
+    assert trace.device
+    run = SimpleNamespace(trace=trace, steps=steps)
+    ph = {name: reader(REPO, f"{name}_ms")(run)
+          for name in ("forward", "backward", "optimizer", "head", "recompute")}
+    assert all(ph[name] is not None and ph[name] > 0 for name in ph), ph
+    spans = program_spans.Spans(trace)
+    assert all(spans.phase(d) is not None for d in trace.device)
     total = ph["forward"] + ph["backward"] + ph["optimizer"]
-    assert total == pytest.approx(prof["device_busy_ms_per_step"], rel=0.01)
+    device_ms = sum(d.end - d.start for d in trace.device) / 1e6 / steps
+    assert total == pytest.approx(device_ms)
     assert ph["recompute"] < ph["backward"] and ph["head"] < total
-    assert 0 <= prof["device_idle_share"] < 1
+    assert 0 <= 1 - trace.busy_s() / trace.window_s < 1
 
 
 # ----------------------------------------------------------------------

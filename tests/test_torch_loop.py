@@ -1,7 +1,7 @@
 """The port's trainer loop against the JAX package on the CPU: the native
 gather, the loader's native path, `train_loop` against the JAX train step
 over the same batches, the trainer entry (auto-resume, export, the
-multi-process refusal), the graft entry and the loop benchmarks."""
+multi-process refusal) and the graft entry."""
 
 import itertools
 import os
@@ -193,16 +193,3 @@ def test_entry_points_need_the_card_by_default():
         graft_entry.entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--steps", "1", "--checkpoint-dir", "unused"])
-
-
-def test_loop_benchmarks_run_at_a_small_size():
-    from training_operator_tpu_torch.trainer import bench
-
-    d = bench.bench_dataloader(rows=256, row_len=65, batch=32, iters=3)
-    assert d["native_gather_gbps"] > 0 and d["numpy_gather_gbps"] > 0
-    _, pcfg = configs()
-    e = bench.bench_trainer_e2e(steps=4, ckpt_every=2, warmup=1, config=pcfg, batch=BATCH,
-                                seq=SEQ, device="cpu")
-    assert e["steps"] == 4 and e["ckpt_saves"] == 3 and e["native_dataio"]
-    assert e["ckpt_bytes_per_save"] > 0 and np.isfinite(e["final_loss"])
-    assert 0 <= e["data_pct"] < 100 and 0 < e["ckpt_pct"] < 100

@@ -5,7 +5,7 @@ and `remat_head` with plain attention."""
 
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from training_operator_tpu_torch.observe import spans
 from training_operator_tpu_torch.trainer.data import DataLoader, TokenDataset, prefetch
@@ -94,7 +94,8 @@ def traced_step():
     batch = _batch()
     state, _ = step(state, batch)
     with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
-        step(state, batch)
+        with record_function("bench.window"):
+            step(state, batch)
     return prof
 
 
@@ -155,22 +156,34 @@ def test_each_batch_is_one_data_range(use_native):
 
 
 def test_profile_phases_follow_the_ranges(traced_step):
-    """bench._span_phases on the CPU step's own host ranges, one device op
-    of 1 ms laid under each of its weight products (`aten::mm`): 7 a layer
-    and the head's in the forward; the head's logits again, with the
-    output projection and the MLP's three of each layer, in the recompute;
-    the head's 4 (forward, recompute, dX, dW); every one in one of the
-    forward, the backward and the optimizer."""
-    from training_operator_tpu_torch.trainer import bench
+    """The benchmark's per-layer readers (benchmark/metrics, on
+    device_trace.from_profiler and program_spans.Spans) on the CPU step's
+    own host ranges, one device op of 1 ms laid under each of its weight
+    products (`aten::mm`): 7 a layer and the head's in the forward; the
+    head's logits again, with the output projection and the MLP's three of
+    each layer, in the recompute; the head's 4 (forward, recompute, dX,
+    dW); none in the optimizer; every one in one of the forward, the
+    backward and the optimizer."""
+    from types import SimpleNamespace
 
-    host, device = bench._trace_events(traced_step)
-    assert not device
+    from benchmark import device_trace, program_spans
+    from benchmark.metrics import reader
+    from benchmark.tiny import REPO
+
+    trace = device_trace.from_profiler(traced_step)
+    assert not trace.device
     ms = 1_000_000
-    device = [("mm", op[1], op[1] + ms, cid) for cid, op in host.items() if op[0] == "aten::mm"]
-    phases = bench._span_phases(host, device, steps=1)
-    assert phases["forward"] == 7 * CONFIG.n_layers + 1
-    assert phases["recompute"] == 4 * CONFIG.n_layers + 1
-    assert phases["head"] == 4
-    assert phases["optimizer"] == 0
-    assert phases["forward"] + phases["backward"] + phases["optimizer"] == len(device)
-    assert bench._span_phases(host, device, steps=2)["head"] == 2
+    trace.device = [device_trace.DeviceOp("mm", op.start, op.start + ms, cid)
+                    for cid, op in trace.host.items() if op.name == "aten::mm"]
+
+    def read(name, steps=1):
+        return reader(REPO, name)(SimpleNamespace(trace=trace, steps=steps))
+
+    assert read("forward_ms") == 7 * CONFIG.n_layers + 1
+    assert read("recompute_ms") == 4 * CONFIG.n_layers + 1
+    assert read("head_ms") == 4
+    assert read("optimizer_ms") is None
+    assert read("forward_ms") + read("backward_ms") == len(trace.device)
+    spans = program_spans.Spans(trace)
+    assert all(spans.phase(d) in ("forward", "backward") for d in trace.device)
+    assert read("head_ms", steps=2) == 2

@@ -11,7 +11,7 @@
 // dO vᵀ, ds k): ~1.5e11 FLOP at the flagship shape, ~0.94 ms at 3xTF32's
 // 165 TFLOP/s, against ~0.5 GB of fp32 traffic (~0.15 ms). Each product
 // step is three `mma.sync` m16n8k8 on TF32, whose measured rate
-// (`bench --mma-rate`) puts the products alone at ~1.55 ms; what the warps
+// (0.619 a cycle per SM on an H100) puts the products alone at ~1.55 ms; what the warps
 // do beside them (shared-memory traffic, splits, barriers) sets how far
 // above that the kernel runs. The design, the dk/dv kernel's
 // (flash_bwd_dkv_fp32.cu) turned around, q resident and K and V streamed:

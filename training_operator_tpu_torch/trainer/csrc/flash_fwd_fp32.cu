@@ -12,7 +12,7 @@
 // and outputs; at the fastest fp32-class rate, 3xTF32 at 495 / 3 = 165
 // TFLOP/s, that is ~0.63 ms against ~0.12 ms of memory traffic. Each
 // product step is three `mma.sync` m16n8k8 on TF32, whose measured rate
-// (0.619 a cycle per SM, `bench --mma-rate`) puts the 1.51e8 HMMA of that
+// (0.619 a cycle per SM on an H100, probed alone) puts the 1.51e8 HMMA of that
 // shape at ~1.05 ms: the floor of this design. What the warps issue beside
 // the products and the shared memory they read set how far above it the
 // kernel runs. Per HMMA at D = 128, against a scheduler's 6.46 issue slots
