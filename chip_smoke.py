@@ -18,6 +18,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             "mma.sync-3xtf32-ring", and HGMMA and UTMALDG for the head's
             "wgmma-3xtf32+tma", and 128-bit global loads and stores
             (LDG.128, STG.128) for clip + AdamW's "multi-tensor-stream"
+            and the expert layer's permutation's "warp-row-permute"
             (kernels.DESIGN_SASS, kernels.required_sass); and the
             same per kernel instantiation, with the count of each type's. Any
             instantiation without its design's instructions, or any spill,
@@ -239,6 +240,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             _fused_adamw_). Phase 4 holds each step to one launch of each
             pass; tests/test_torch_cuda.py holds the kernels to the loop at
             small sizes.
+19. permute  the dropless expert layer's token permutation (trainer/
+            permute.py on csrc/moe_permute.cu: the scatter and the gather-sum,
+            each with and without the gate) at OLMoE's shape
+            (bench.PERMUTE_SHAPE: 16,384 tokens of 2048, top-8 of 64) on the
+            layer's own routing (bench.bench_permute): the dispatch and y's
+            gradient bit for bit against the torch ops (padding rows zero),
+            the combine and the dispatch's backward within one bf16 ulp, the
+            gate's gradient at least as close to float64 as the torch ops';
+            fails otherwise. Then each use's ms, a mean of 10 calls by CUDA
+            events, beside the torch ops' (`plain_ms`) and its byte bound
+            (bench.permute_bytes at 3.35 TB/s), and ms / bound. ~20 s.
 
 The last lines are the `kernels` JSON line, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. The `kernels` line has a row per
@@ -248,8 +260,9 @@ keys, at [1, 4096, 8, 256]; the same for the fp16 instantiation in the
 `_fp16` and `_fp16_d256` keys), a row per fp32 kernel (`<name>_fp32`: phase 14's launches
 and the same fields in fp32) and a row per head product (`head_<product>`:
 phase 4's launches, phase 17's times, bounds, SGEMM's ms and float64
-errors per cell shape) and a row for clip + AdamW (`adamw`: phase 4's
-launches, phase 18's times and bounds per configuration).
+errors per cell shape), a row for clip + AdamW (`adamw`: phase 4's
+launches, phase 18's times and bounds per configuration) and a row for the
+expert layer's permutation (`moe_permute`: phase 19's uses).
 
 Tolerances, bf16 kernel against the plain version in fp32 on the same bf16
 inputs:
@@ -1377,6 +1390,25 @@ def run_adamw(card) -> dict:
     return rows
 
 
+def run_permute(card) -> dict:
+    """Phase 19; see the module docstring. Returns {use: fields}."""
+    import torch
+
+    from training_operator_tpu_torch.trainer import bench
+
+    rows = bench.bench_permute()
+    for use, row in rows.items():
+        log(f"permute: {use} {bench.PERMUTE_SHAPE} " + json.dumps(row))
+    wrong = {use: row for use, row in rows.items()
+             if not row.get("exact", True) or row.get("ulps", 0) > 1
+             or row.get("err", 0) > row.get("plain_err", 0)}
+    if wrong:
+        raise AssertionError(f"permute: the kernels differ from the torch ops: {wrong}")
+    torch.cuda.empty_cache()
+    log(f"permute: done on {card}")
+    return rows
+
+
 def kernel_type(mangled: str) -> str:
     """The element type of a kernel instantiation from its mangled name:
     fp16 (`__half`) or bf16 (`__nv_bfloat16`) for the wgmma kernels, fp32
@@ -1649,6 +1681,9 @@ def main() -> int:
     # 18. adamw
     optimizer_rows = run_adamw(card)
 
+    # 19. permute
+    permute_rows = run_permute(card)
+
     # report
     sass = build["sass"]
     replaces = {
@@ -1743,6 +1778,20 @@ def main() -> int:
         "bound_by": "bytes",
         "bound_rule": f"{bench.ADAMW_BYTES} bytes a parameter at 3.35 TB/s",
         "configs": optimizer_rows,
+    })
+    src = "moe_permute.cu"
+    rows.append({
+        "name": "moe_permute",
+        "route": "cuda",
+        "design": kernels.DESIGN[src],
+        "ldg128": sass[src]["LDG.128"],
+        "stg128": sass[src]["STG.128"],
+        "source": f"training_operator_tpu_torch/trainer/csrc/{src}",
+        "replaces": "none: the JAX package has no dropless layer (its switch layer's one-hot "
+                    "einsums, training_operator_tpu/trainer/model.py)",
+        "bound_by": "bytes",
+        "bound_rule": "bench.permute_bytes at 3.35 TB/s",
+        "uses": permute_rows,
     })
     print(json.dumps({"kernels": rows}))
     print(card)

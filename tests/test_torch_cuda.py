@@ -750,6 +750,180 @@ def test_a_dropless_step_takes_no_host_sync(card):
     assert torch.isfinite(metrics["loss"]).item()
 
 
+def _olmoe_routing(empty: bool):
+    """Seeded hidden states routed by the layer's own router and group
+    layout at OLMoE's shape (bench.PERMUTE_SHAPE: 16,384 tokens of 2048,
+    top-8 of 64): (x [T, D] bf16, gate [T, k] fp32, dest [T k],
+    rows). With `empty`, no token chooses expert 5 (a large first feature
+    against a large negative router weight)."""
+    from types import SimpleNamespace
+
+    from training_operator_tpu_torch.trainer import moe
+
+    t, d, e, k = (bench.PERMUTE_SHAPE[n] for n in ("tokens", "d", "experts", "k"))
+    g = torch.Generator(device="cuda").manual_seed(26)
+    x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+    router = torch.randn(d, e, generator=g, device="cuda") * 0.02
+    if empty:
+        x[:, 0] = 4.0
+        router[0, 5] = -50.0
+    gate, choice, counts, _ = moe.route_topk(x, router, SimpleNamespace(n_experts=e,
+                                                                       n_experts_per_tok=k))
+    dest, _, rows = moe.group_layout(choice, counts, e)
+    assert (counts[5].item() == 0) == empty
+    return x, gate, dest, rows
+
+
+@pytest.mark.parametrize("empty", [False, True], ids=["routed", "one-expert-empty"])
+def test_permutation_kernels_match_the_torch_ops_at_olmoes_shape(card, empty):
+    """The four uses of the two kernels against the torch ops they replace
+    (moe.plain_dispatch, plain_combine and its autograd,
+    plain_dispatch_backward), on the layer's own routing: the dispatch and
+    y's gradient bit for bit with every padding row zero (the allocator's
+    free blocks hold NaN first, so an unwritten row shows); the combine and
+    the dispatch's backward within one bf16 ulp (the k-sum's order may
+    differ); the gate's gradient at least as close to a float64 one as the
+    torch ops' (fp32 against a bf16 sum); two runs the same bit for bit."""
+    from training_operator_tpu_torch.trainer import moe, permute
+
+    x, gate, dest, rows = _olmoe_routing(empty)
+    (t, d), k = x.shape, gate.shape[1]
+    d2 = dest.view(t, k)
+    named = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    named[dest] = True
+    g = torch.Generator(device="cuda").manual_seed(27)
+    y = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+    dout = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+    grad_xs = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+
+    def nan_blocks():
+        torch.full((2 * rows * d,), float("nan"), dtype=torch.bfloat16, device="cuda")
+
+    def kernels_once():
+        nan_blocks()
+        xs = permute.scatter(x, d2, rows)
+        out = permute.gather_sum(y, d2, gate)
+        nan_blocks()
+        dy, dgate = permute.scatter(dout, d2, rows, gate, y)
+        return xs, out, dy, dgate, permute.gather_sum(grad_xs, d2)
+
+    permute.reset_launches()
+    first, second = kernels_once(), kernels_once()
+    torch.cuda.synchronize()
+    assert permute.launches == {"scatter": 4, "gather_sum": 4}
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    xs, out, dy, dgate, dx = first
+    assert torch.equal(xs, moe.plain_dispatch(x, dest, rows, k)) and not xs[~named].any()
+    assert bench.bf16_ulps(out, moe.plain_combine(y, gate, dest)) <= 1
+    leaves = y.clone().requires_grad_(), gate.clone().requires_grad_()
+    want_dy, want_dgate = torch.autograd.grad(moe.plain_combine(*leaves, dest), leaves, dout)
+    assert torch.equal(dy, want_dy) and not dy[~named].any()
+    exact = torch.bmm(y.double()[dest].view(t, k, d), dout.double()[:, :, None])[..., 0]
+    err = (dgate.double() - exact).abs().max().item()
+    assert err <= (want_dgate.double() - exact).abs().max().item()
+    assert bench.bf16_ulps(dx, moe.plain_dispatch_backward(grad_xs, dest, k)) <= 1
+
+
+def test_dropless_layer_with_the_permutation_kernels_matches_the_torch_ops(card, monkeypatch):
+    """The dropless layer on the card with the permutation kernels against
+    the same layer with its permutation as torch ops (`permute.fused` made
+    False, the CPU's path on card tensors): output, aux sums and every
+    gradient within the 1e-2 of their norm that
+    test_dropless_layer_grouped_products_match_the_plain_loop allows; one
+    launch of each kernel in the forward and one in the backward."""
+    from training_operator_tpu_torch.trainer import moe, permute
+
+    config = _dropless_config()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    h = torch.randn(4, 512, 256, generator=g, device="cuda").to(torch.bfloat16)
+    weights = [torch.randn(256, 16, generator=g, device="cuda") * 0.06,
+               torch.randn(16, 256, 128, generator=g, device="cuda") * 0.06,
+               torch.randn(16, 256, 128, generator=g, device="cuda") * 0.06,
+               torch.randn(16, 128, 256, generator=g, device="cuda") * 0.05]
+    dy = torch.randn(4, 512, 256, generator=g, device="cuda").to(torch.bfloat16)
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in [h, *weights]]
+        y, sums = moe.dropless_mlp(leaves[0], leaves[1], dict(zip(("w1", "w3", "w2"),
+                                                                  leaves[2:])), config)
+        ((y.float() * dy.float()).sum() + sums[1].square().sum()).backward()
+        return [y.float(), sums] + [t.grad.float() for t in leaves]
+
+    permute.reset_launches()
+    got = run()
+    assert permute.launches == {"scatter": 2, "gather_sum": 2}
+    monkeypatch.setattr(permute, "fused", lambda *tensors: False)
+    want = run()
+    assert permute.launches == {"scatter": 2, "gather_sum": 2}
+    for a, b in zip(got, want):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("case,reason", [("float32 rows", "rows not bfloat16"),
+                                         ("transposed", "not contiguous"),
+                                         ("dest on the CPU", "not on one CUDA device")])
+def test_the_permutation_refuses_on_the_card(card, case, reason):
+    """No call on the card falls back to the torch ops: one the kernels
+    refuse raises, naming why, and launches nothing."""
+    from training_operator_tpu_torch.trainer import moe, permute
+
+    x = torch.randn(64, 256, device="cuda").bfloat16()
+    dest = torch.randperm(64 * 2 + 64, device="cuda")[:128]
+    x = {"float32 rows": x.float(), "transposed": x.t().contiguous().t()}.get(case, x)
+    dest = dest.cpu() if case == "dest on the CPU" else dest
+    permute.reset_launches()
+    with pytest.raises(ValueError, match=f"^scatter: .*refused: {reason}$"):
+        moe._Dispatch.apply(x, dest, 64 * 2 + 64, 2)
+    assert permute.launches == {"scatter": 0, "gather_sum": 0}
+
+
+def test_a_traced_dropless_step_permutes_in_the_kernels_alone(card):
+    """Two traced steps of a dropless model (save_attn_qkv + remat_head, as
+    the OLMoE cell runs): every device op under `model.moe.permute` is one
+    of moe_permute.cu's kernels or its byte map's memset, none of torch's
+    index or elementwise kernels, and each lies under the ranges `moe_ms`
+    reads; `permute_ms` reads them; three launches of each kernel a layer
+    and step (forward, recompute, backward)."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from benchmark import device_trace, moe_spans
+    from benchmark.metrics import permute_ms, reader
+    from benchmark.tiny import REPO
+    from training_operator_tpu_torch.trainer import permute
+    from training_operator_tpu_torch.trainer.train import (
+        init_train_state,
+        make_example_batch,
+        make_optimizer,
+        make_train_step,
+    )
+
+    config = _dropless_config(remat_policy="save_attn_qkv", remat_head=True)
+    optimizer = make_optimizer(warmup_steps=2, total_steps=10)
+    state = init_train_state(config, optimizer, device="cuda")
+    step = make_train_step(config, optimizer, device="cuda")
+    batch = make_example_batch(config, 2, 512, device="cuda")
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    permute.reset_launches()
+    steps = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("bench.window"):
+            for _ in range(steps):
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+    per_step = 3 * config.n_layers
+    assert permute.launches == {"scatter": steps * per_step, "gather_sum": steps * per_step}
+    trace = device_trace.from_profiler(prof)
+    under = [op for op in trace.device
+             if trace.under(op, frozenset((permute_ms.PERMUTE,))) is not None]
+    names = {op.name for op in under}
+    assert names and all("moe_permute::" in n or "Memset" in n for n in names), names
+    assert all(trace.under(op, moe_spans.LAYER) is not None for op in under)
+    assert reader(REPO, "permute_ms")(SimpleNamespace(trace=trace, steps=steps)) > 0
+
+
 # The fused optimizer's tensors (trainer/adamw.py): one element and three
 # (scalar only), 4097 (float4 and a scalar tail of one) and 2^20 + 5 (16
 # chunks of 65,536 and a ragged 17th); "odd", p, g, mu and nu each a view

@@ -64,7 +64,10 @@ def test_tag_ignores_unlisted_files(csrc_copy):
 # wgmma, the proxy fence before wgmma reads the split planes, and the
 # register hand-over; for multi-tensor-stream (clip and AdamW) the table's
 # rows found by binary search, float4 accesses, 64-bit offsets, a
-# fixed-order block sum and IEEE division and square root.
+# fixed-order block sum and IEEE division and square root; for
+# warp-row-permute (the expert layer's permutation) 16-byte row accesses,
+# a warp's butterfly sum, the padding rows found by ballot, 64-bit row
+# offsets and bf16 rounding to nearest even.
 DESIGN_REQUIRES = {
     "wgmma+tma": ('#include "sm90_common.cuh"', "tma_load_4d", "wgmma_", "reg_alloc"),
     "wgmma-3xtf32+tma": ('#include "flash_fp32.cuh"', '#include "sm90_common.cuh"',
@@ -78,6 +81,8 @@ DESIGN_REQUIRES = {
                                "mbar_wait(", "named_bar_sync(", "reg_alloc"),
     "multi-tensor-stream": ("struct Tensor", "tensor_of(", "float4", "long long",
                             "block_sum(", "__fdiv_rn(", "__fsqrt_rn("),
+    "warp-row-permute": ("uint4", "__ldg(", "__shfl_xor_sync(", "__ballot_sync(", "long long",
+                         "__floats2bfloat162_rn(", "__float2bfloat16_rn("),
 }
 # The helpers that split an operand as they load it from a row-major tile:
 # the ring design splits each element once instead.
@@ -94,6 +99,10 @@ DESIGN_FORBIDS = {
     # division, square root or reciprocal.
     "multi-tensor-stream": ("atomicAdd", "atomicCAS", "__fdividef", "rsqrtf", "__frsqrt_rn",
                             "sqrtf("),
+    # One writer a row and fixed-order sums: no atomics; no fill of the
+    # whole buffer (cudaMemsetAsync only on the byte map of named rows).
+    "warp-row-permute": ("atomicAdd", "atomicCAS", "atomicExch", "red.global", "__syncthreads",
+                         "cudaMemset("),
 }
 
 
@@ -116,6 +125,9 @@ def test_each_source_names_its_design(src):
     elif design == "multi-tensor-stream":
         # A stream of fp32 elements: no products, one launch a pass.
         assert "mma" not in text and "_fp32(" in text
+    elif design == "warp-row-permute":
+        # bf16 rows moved and summed: no products, entry points per type.
+        assert "mma" not in text and "_bf16(" in text
     else:
         # The fp32 kernels run no product outside the 3xTF32 split.
         assert "wgmma" not in text and "mma_tf32(" not in text and "_fp32(" in text
@@ -163,15 +175,18 @@ def test_every_entry_point_has_a_library():
     """Each flash kernel has a C entry point per type, in the wgmma source
     for bf16 and fp16 and in its fp32 source for fp32; the head's three
     products have theirs in head_gemm_fp32.cu, clip and AdamW theirs in
-    adamw_fp32.cu."""
+    adamw_fp32.cu, the expert layer's permutation its two in
+    moe_permute.cu."""
     for name, src in kernels._LIB_OF.items():
         assert src in kernels.SOURCES and f'extern "C" int {name}(' in (
             kernels.CSRC / src).read_text(), name
     assert set(kernels._LIB_OF) == set(kernels._SIGNATURES)
     assert len(kernels._SIGNATURES) == (3 * len(kernels.TYPES) + len(kernels.HEAD_ENTRIES)
-                                        + len(kernels.ADAMW_SIGNATURES))
+                                        + len(kernels.ADAMW_SIGNATURES)
+                                        + len(kernels.PERMUTE_SIGNATURES))
     assert {kernels._LIB_OF[name] for name in kernels.HEAD_ENTRIES} == {"head_gemm_fp32.cu"}
     assert {kernels._LIB_OF[name] for name in kernels.ADAMW_SIGNATURES} == {"adamw_fp32.cu"}
+    assert {kernels._LIB_OF[name] for name in kernels.PERMUTE_SIGNATURES} == {"moe_permute.cu"}
 
 
 def test_sass_counts_reads_cuobjdump(monkeypatch, tmp_path):
@@ -266,3 +281,26 @@ def test_the_optimizer_kernels_move_128_bits_an_access():
                              "  /*0230*/  LDG.E R3, desc[UR4][R6.64] ;\n")
     assert (counts["LDG.128"], counts["STG.128"]) == (2, 1)
     assert not any("fast" in flag for flag in kernels.NVCC_FLAGS)
+
+
+def test_the_permutation_kernels_move_128_bits_an_access():
+    """The expert layer's scatters and gather-sums (with a gate and
+    without) must show 128-bit loads and stores; mark_kernel, which writes a
+    byte a named row, needs neither. A scalar build fails."""
+    zero = dict.fromkeys(kernels.SASS_OPS, 0)
+    src = "moe_permute.cu"
+    assert kernels.DESIGN[src] == "warp-row-permute"
+    assert kernels.DESIGN_SASS["warp-row-permute"] == ("LDG.128", "STG.128")
+    scatter = ["_ZN11moe_permute14scatter_kernelEPK13__nv_bfloat16PKxPS0_PKhxiixx",
+               "_ZN11moe_permute19scatter_gate_kernelEPK13__nv_bfloat16PKxPKfS2_PS0_PfPKhxiixx"]
+    gather = ["_ZN11moe_permute17gather_sum_kernelILb0EEEvPK13__nv_bfloat16PKxPKfPS1_xii",
+              "_ZN11moe_permute17gather_sum_kernelILb1EEEvPK13__nv_bfloat16PKxPKfPS1_xii"]
+    mark = "_ZN11moe_permute11mark_kernelEPKxxPh"
+    vector = dict(zero, **{"LDG.128": 9, "STG.128": 8})
+    assert kernels.missing_sass({src: {**dict.fromkeys(scatter + gather, vector),
+                                       mark: zero}}) == {}
+    loads = dict(zero, **{"LDG.128": 9})
+    assert kernels.missing_sass({src: {scatter[0]: vector, scatter[1]: loads,
+                                       gather[0]: zero, gather[1]: vector, mark: zero}}) == {
+        src: [scatter[1], gather[0]]}
+    assert kernels.required_sass(src, mark) == ()

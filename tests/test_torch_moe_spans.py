@@ -178,3 +178,35 @@ def test_counters_are_kept_only_while_collecting():
     assert len(counts) == 1
     names = [e.name() for e in prof.profiler.kineto_results.events()]
     assert names.count("model.moe.expert_load_max=2.0") == 1
+
+
+def test_the_permutation_range_covers_its_four_calls_inside_the_layers(traced_step):
+    """`model.moe.permute` opens once a layer for each of the four calls:
+    the dispatch and the combine inside `model.moe` in the forward and again
+    in the recompute, their backwards inside `model.moe.grad` alone. Every op
+    under it is also under the ranges `moe_ms` reads (moe_spans.LAYER), in
+    the benchmark's own nesting of a trace."""
+    from benchmark import device_trace, moe_spans
+
+    rows = _ranges(traced_step[0])
+    (forward,), (backward,) = _named(rows, spans.FORWARD), _named(rows, spans.BACKWARD)
+    found = _named(rows, spans.MOE_PERMUTE)
+    L = CONFIG.n_layers
+    assert sum(_inside(r, forward) for r in found) == 2 * L
+    assert sum(_inside(r, backward) for r in found) == 4 * L  # recompute and backward
+    assert len(found) == 6 * L
+    layers, grads = _named(rows, spans.MOE), _named(rows, spans.MOE_GRAD)
+    in_layer = [any(_inside(r, o) for o in layers) for r in found]
+    assert sum(in_layer) == 4 * L
+    # The backward's two, and the recompute's, which the backward runs.
+    assert sum(any(_inside(r, o) for o in grads) and not inside
+               for r, inside in zip(found, in_layer)) == 2 * L
+    host = {e.correlation_id(): device_trace.HostOp(e.name(), e.start_ns(), e.end_ns(),
+                                                    e.start_thread_id())
+            for e in traced_step[0].profiler.kineto_results.events()
+            if e.correlation_id() and e.start_thread_id() == e.end_thread_id()}
+    device_trace._nest(host)
+    trace = device_trace.Trace(window=(0, 0), device=[], host=host, main_thread=0)
+    under = [op for op in host if spans.MOE_PERMUTE in trace.chain(op)[1:]]
+    assert len(under) > 6 * L
+    assert all(moe_spans.LAYER & set(trace.chain(op)) for op in under)

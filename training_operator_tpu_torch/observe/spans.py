@@ -30,6 +30,10 @@ The dropless MoE layer (trainer/moe.py) has ranges of its own (`MOE_NAMES`):
 over its backward, and inside them `model.moe.route` (router product,
 softmax, top-k, sort and group offsets, the aux sums), `model.moe.experts`
 (the grouped products) and `model.moe.experts.grad` (their backward).
+`model.moe.permute` (`MOE_PERMUTE`, beside `MOE_NAMES`) covers each of the
+token permutation's four calls: the dispatch and the combine inside
+`model.moe`, their backwards inside each one's own autograd node, inside
+`model.moe.grad`.
 
 Counters: a device value that a layer computes only while the train step
 collects them (`counting`: during the forward, and only with a profiler
@@ -67,6 +71,7 @@ MOE_ROUTE = "model.moe.route"
 MOE_EXPERTS = "model.moe.experts"
 MOE_EXPERTS_GRAD = "model.moe.experts.grad"
 MOE_NAMES = (MOE, MOE_GRAD, MOE_ROUTE, MOE_EXPERTS, MOE_EXPERTS_GRAD)
+MOE_PERMUTE = "model.moe.permute"
 EXPERT_LOAD = "model.moe.expert_load_max"
 OPTIMIZER_FUSED_SHARE = "train.optimizer.fused_share"
 

@@ -3,9 +3,10 @@ runs, and the arithmetic the benchmark's copies are held to.
 
 - The kernels alone: `bench_attention` (the flash kernels beside their
   plain versions, SDPA and their bounds), `bench_head` and
-  `head_float64_errors` (the fp32 head's products) and `bench_adamw` (the
-  fused clip + AdamW), timed by CUDA events (`cuda_time_ms`); chip_smoke.py
-  phases 3, 17 and 18 print them. Each raises without a card.
+  `head_float64_errors` (the fp32 head's products), `bench_adamw` (the
+  fused clip + AdamW) and `bench_permute` (the dropless expert layer's
+  permutation), timed by CUDA events (`cuda_time_ms`); chip_smoke.py
+  phases 3, 17, 18 and 19 print them. Each raises without a card.
 - The configurations of chip_smoke.py's phases: `flagship_config`,
   `flagship_fp32_config`, `moe_config`, `pipeline_config` and
   `gemma2b_config`, with `moe_routing` for phase 9.
@@ -498,3 +499,104 @@ def bench_adamw(shapes: Dict[str, tuple], iters: int = 10, loop_iters: int = 2,
             "tb_per_s": ADAMW_BYTES * n / ms / 1e9, "plain_ms": plain_ms,
             "library_ms": library_ms, "errors": errors,
             "launches": {k: v // (iters + 1) for k, v in fused.items()}}
+
+
+# The dropless expert layer's permutation at OLMoE's shape
+# (benchmark/configs/olmoe_1b7b_stage8.json: 4 x 4096 tokens of 2048, top-8
+# of 64 experts).
+PERMUTE_SHAPE = dict(tokens=16384, d=2048, experts=64, k=8)
+PERMUTE_USES = ("dispatch", "combine", "combine_backward", "dispatch_backward")
+
+
+def permute_bytes(tokens: int, k: int, d: int, rows: int) -> Dict[str, int]:
+    """Bytes each use of the permutation must move (csrc/moe_permute.cu):
+    bf16 rows of D, the buffer's `rows` written whole, its T k named rows
+    read, the token rows read or written once, dest (int64) and the gates
+    (fp32) read once, the gate's gradient written once."""
+    row, pairs = 2 * d, tokens * k
+    return {"dispatch": tokens * row + rows * row + 8 * pairs,
+            "combine": pairs * row + tokens * row + 12 * pairs,
+            "combine_backward": tokens * row + pairs * row + rows * row + 16 * pairs,
+            "dispatch_backward": pairs * row + tokens * row + 8 * pairs}
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in units of bf16's last place at the larger
+    of the two magnitudes (2^(e - 8) for a value of m 2^e, m in [0.5, 1))."""
+    a, b = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return ((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max().item()
+
+
+def bench_permute(tokens: int = PERMUTE_SHAPE["tokens"], d: int = PERMUTE_SHAPE["d"],
+                  experts: int = PERMUTE_SHAPE["experts"], k: int = PERMUTE_SHAPE["k"],
+                  iters: int = 10, device=None) -> Dict[str, Dict[str, Any]]:
+    """The four uses of the permutation kernels (trainer/permute.py) on
+    seeded hidden states routed by the layer's own router and group layout,
+    on the card: {use: fields}. `ms`, means by CUDA events of `iters` calls,
+    beside `bound_ms` (`permute_bytes` at the card's peak bytes/s) and
+    `plain_ms`, the torch ops they replace (moe.plain_dispatch,
+    plain_combine, its autograd backward alone, plain_dispatch_backward).
+    `exact` where a use must equal the torch ops bit for bit (the dispatch
+    and y's gradient, padding rows zero included), `ulps` where it may
+    differ by the k-sum's order (the combine and the dispatch's backward),
+    and for the gate's gradient its max error against float64 beside the
+    torch ops' (`err`, `plain_err`)."""
+    from types import SimpleNamespace
+
+    from training_operator_tpu_torch.trainer import moe, permute
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("bench_permute measures the card; no CUDA device given")
+    peak = _peak(PEAK_BYTES_PER_S, torch.cuda.get_device_name(device))
+    if peak is None:
+        raise ValueError("no published peak rates for this card: bounds need them")
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(tokens, d, generator=g, device=device).bfloat16()
+    router = torch.randn(d, experts, generator=g, device=device) * 0.02
+    gate, choice, counts, _ = moe.route_topk(x, router, SimpleNamespace(
+        n_experts=experts, n_experts_per_tok=k))
+    dest, _, rows = moe.group_layout(choice, counts, experts)
+    d2 = dest.view(tokens, k)
+    y, grad_xs = (torch.randn(rows, d, generator=g, device=device).bfloat16() for _ in range(2))
+    dout = torch.randn(tokens, d, generator=g, device=device).bfloat16()
+    leaves = y.clone().requires_grad_(), gate.clone().requires_grad_()
+    combined = moe.plain_combine(*leaves, dest)
+
+    kernel = {"dispatch": lambda: permute.scatter(x, d2, rows),
+              "combine": lambda: permute.gather_sum(y, d2, gate),
+              "combine_backward": lambda: permute.scatter(dout, d2, rows, gate, y),
+              "dispatch_backward": lambda: permute.gather_sum(grad_xs, d2)}
+    plain = {"dispatch": lambda: moe.plain_dispatch(x, dest, rows, k),
+             "combine": lambda: moe.plain_combine(y, gate, dest),
+             "combine_backward": lambda: torch.autograd.grad(combined, leaves, dout,
+                                                             retain_graph=True),
+             "dispatch_backward": lambda: moe.plain_dispatch_backward(grad_xs, dest, k)}
+    got = {use: fn() for use, fn in kernel.items()}
+    want = {use: fn() for use, fn in plain.items()}
+    named = torch.zeros(rows, dtype=torch.bool, device=device)
+    named[dest] = True
+    exact = torch.bmm(y.double()[dest].view(tokens, k, d), dout.double()[:, :, None])[..., 0]
+    checks = {
+        "dispatch": {"exact": torch.equal(got["dispatch"], want["dispatch"])
+                     and not got["dispatch"][~named].any().item()},
+        "combine": {"ulps": bf16_ulps(got["combine"], want["combine"])},
+        "combine_backward": {
+            "exact": torch.equal(got["combine_backward"][0], want["combine_backward"][0])
+            and not got["combine_backward"][0][~named].any().item(),
+            "err": (got["combine_backward"][1].double() - exact).abs().max().item(),
+            "plain_err": (want["combine_backward"][1].double() - exact).abs().max().item()},
+        "dispatch_backward": {"ulps": bf16_ulps(got["dispatch_backward"],
+                                                want["dispatch_backward"])},
+    }
+    del got, want, exact
+    moved = permute_bytes(tokens, k, d, rows)
+    out = {}
+    for use in PERMUTE_USES:
+        ms = cuda_time_ms(kernel[use], iters=iters)
+        bound_ms = moved[use] / peak * 1e3
+        out[use] = {"ms": ms, "plain_ms": cuda_time_ms(plain[use], iters=iters),
+                    "bound_ms": bound_ms, "ms_over_bound": ms / bound_ms,
+                    "tb_per_s": moved[use] / ms / 1e9, "bytes": moved[use], **checks[use]}
+    return out

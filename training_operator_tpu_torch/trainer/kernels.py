@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
            "flash_fwd_fp32.cu", "flash_bwd_dq_fp32.cu", "flash_bwd_dkv_fp32.cu",
-           "head_gemm_fp32.cu", "adamw_fp32.cu")
+           "head_gemm_fp32.cu", "adamw_fp32.cu", "moe_permute.cu")
 HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fp32.cuh")
 # How each source computes. The wgmma+tma sources hold the bf16 and fp16
 # instantiations of each kernel; the fp32 kernels run 3xTF32 products on
@@ -48,6 +48,9 @@ HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fp32.cuh")
 # into tf32 planes in shared memory, A split in registers, three wgmma per
 # k step. Clip and AdamW (adamw_fp32.cu) are multi-tensor-stream: every
 # tensor's chunks in one grid, a block a chunk, moved in 128-bit accesses.
+# The dropless expert layer's permutation (moe_permute.cu) is
+# warp-row-permute: a warp a token, whole rows moved in 128-bit accesses,
+# one writer a row and sums in a fixed order.
 DESIGN = {
     "flash_fwd.cu": "wgmma+tma",
     "flash_bwd_dq.cu": "wgmma+tma",
@@ -57,6 +60,7 @@ DESIGN = {
     "flash_bwd_dkv_fp32.cu": "mma.sync-3xtf32-ring",
     "head_gemm_fp32.cu": "wgmma-3xtf32+tma",
     "adamw_fp32.cu": "multi-tensor-stream",
+    "moe_permute.cu": "warp-row-permute",
 }
 # The SASS instructions every kernel instantiation of a design must show
 # (`kernel_sass_counts`): Hopper's tensor-core wgmma (HGMMA) and TMA loads
@@ -69,12 +73,15 @@ DESIGN_SASS = {
     "mma.sync-3xtf32-ring": ("HMMA.TF32", "SYNCS"),
     "mma.sync-3xtf32-stream": ("HMMA.TF32", "SYNCS"),
     "multi-tensor-stream": ("LDG.128", "STG.128"),
+    "warp-row-permute": ("LDG.128", "STG.128"),
 }
 # Kernels held to less than their source's design, by a fragment of their
 # name: the global norm's first pass reads the gradients 128 bits at a time
 # but writes one sum a block, and its finishing pass (one block) reads and
-# writes a few sums a tensor.
-KERNEL_SASS = {"adamw_fp32.cu": {"sumsq_kernel": ("LDG.128",), "sumsq_finish_kernel": ()}}
+# writes a few sums a tensor; the permutation's mark_kernel reads dest's
+# int64 rows and writes a byte each.
+KERNEL_SASS = {"adamw_fp32.cu": {"sumsq_kernel": ("LDG.128",), "sumsq_finish_kernel": ()},
+               "moe_permute.cu": {"mark_kernel": ()}}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -105,14 +112,24 @@ ADAMW_SIGNATURES = {
     "adamw_sumsq_fp32": (_P, _I, _L, _P, _P, _P, _P),
     "adamw_update_fp32": (_P, _I, _L, _P, _D, _D, _D, _D, _D, _D, _D, _D, _P),
 }
+# The dropless expert layer's permutation (permute.py): the scatter (src,
+# dest, gate, y, out, grad_gate, named, tokens, k, d, rows, stream) and the
+# gather-sum (buf, dest, gate, out, tokens, k, d, stream).
+PERMUTE_SIGNATURES = {
+    "moe_scatter_bf16": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P),
+    "moe_gather_sum_bf16": (_P, _P, _P, _P, _L, _I, _I, _P),
+}
 _SIGNATURES = {**{f"{k}_{t}": sig for k, sig in _KERNEL_SIGNATURES.items() for t in TYPES},
-               **dict.fromkeys(HEAD_ENTRIES, _HEAD_SIGNATURE), **ADAMW_SIGNATURES}
+               **dict.fromkeys(HEAD_ENTRIES, _HEAD_SIGNATURE), **ADAMW_SIGNATURES,
+               **PERMUTE_SIGNATURES}
 # The library of each entry point: bf16 and fp16 in one wgmma source, fp32
-# in its own; the head's in head_gemm_fp32.cu.
+# in its own; the head's in head_gemm_fp32.cu, the optimizer's in
+# adamw_fp32.cu, the permutation's in moe_permute.cu.
 _LIB_OF = {**{f"{k}_{t}": f"{k}_fp32.cu" if t == "fp32" else f"{k}.cu"
               for k in _KERNEL_SIGNATURES for t in TYPES},
            **dict.fromkeys(HEAD_ENTRIES, "head_gemm_fp32.cu"),
-           **dict.fromkeys(ADAMW_SIGNATURES, "adamw_fp32.cu")}
+           **dict.fromkeys(ADAMW_SIGNATURES, "adamw_fp32.cu"),
+           **dict.fromkeys(PERMUTE_SIGNATURES, "moe_permute.cu")}
 
 
 @dataclass

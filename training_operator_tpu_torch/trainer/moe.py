@@ -63,6 +63,10 @@ card torch's `_grouped_mm` (a CUTLASS sm90 grouped GEMM that reads the group
 offsets on the device, with its own backward), on the CPU a loop of plain
 products over the groups. The padding keeps every group's rows 16-byte
 aligned and never empty, which the grouped GEMM's weight gradient needs.
+The permutation into that buffer and back (`_Dispatch`, `_Combine`) runs on
+the card in the kernels of trainer/permute.py, which write each padding row
+once and fill nothing else, and on the CPU as torch ops (`plain_dispatch`,
+`plain_dispatch_backward`, `plain_combine`).
 It runs unsharded (model.py refuses a mesh).
 """
 
@@ -81,12 +85,14 @@ from training_operator_tpu_torch.observe.spans import (
     MOE_EXPERTS,
     MOE_EXPERTS_GRAD,
     MOE_GRAD,
+    MOE_PERMUTE,
     MOE_ROUTE,
     backward_span,
     count,
     counting,
     span,
 )
+from training_operator_tpu_torch.trainer import permute
 from training_operator_tpu_torch.trainer.collectives import (
     all_reduce,
     all_to_all,
@@ -224,24 +230,84 @@ def group_layout(choice: torch.Tensor, counts: torch.Tensor, n_experts: int):
     return dest, end.to(torch.int32), rows
 
 
+def plain_dispatch(x: torch.Tensor, dest: torch.Tensor, rows: int, k: int) -> torch.Tensor:
+    """The dispatch as torch ops (the CPU's path, and the reference the
+    kernels are held to): x [T, D] -> [rows, D], row dest[t k + j] holding
+    x[t], the others zeros."""
+    out = x.new_zeros(rows, x.shape[1])
+    out[dest.view(-1, k)] = x.unsqueeze(1)
+    return out
+
+
+def plain_dispatch_backward(grad: torch.Tensor, dest: torch.Tensor, k: int) -> torch.Tensor:
+    """The dispatch's backward as torch ops: each token's k rows of grad
+    [M, D] summed, with fp32 accumulation, rounded once."""
+    g = grad.index_select(0, dest)
+    return g.view(-1, k, g.shape[1]).sum(1)
+
+
+def plain_combine(y: torch.Tensor, gate: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
+    """The combine as torch ops, differentiable: y [M, D], gate [T, k] fp32
+    -> [T, D], out[t] = sum_j bf16(gate[t, j]) y[dest[t k + j]] (the gate
+    rounded to y's dtype, each product rounded, the k terms summed with fp32
+    accumulation and rounded once)."""
+    k = gate.shape[1]
+    return (y.index_select(0, dest).view(-1, k, y.shape[1]) * gate.to(y.dtype)[..., None]).sum(1)
+
+
 class _Dispatch(torch.autograd.Function):
     """x [T, D] -> the grouped buffer [M, D]: row dest[t k + j] holds x[t],
     the padding rows zeros. Its backward sums each token's k rows, with fp32
-    accumulation, rounded once."""
+    accumulation, rounded once, under the range `model.moe.permute`. On the
+    card the permutation kernels (trainer/permute.py: `scatter`, then
+    `gather_sum`), on the CPU `plain_dispatch` and its backward."""
 
     @staticmethod
     def forward(ctx, x, dest, rows: int, k: int):
         ctx.save_for_backward(dest)
         ctx.k = k
-        out = x.new_zeros(rows, x.shape[1])
-        out[dest.view(-1, k)] = x.unsqueeze(1)
-        return out
+        if permute.fused(x, dest):
+            return permute.scatter(x, dest.view(-1, k), rows)
+        return plain_dispatch(x, dest, rows, k)
 
     @staticmethod
     def backward(ctx, grad):
         (dest,) = ctx.saved_tensors
-        g = grad.index_select(0, dest)
-        return g.view(-1, ctx.k, g.shape[1]).sum(1), None, None, None
+        with span(MOE_PERMUTE):
+            if permute.fused(grad, dest):
+                dx = permute.gather_sum(grad.contiguous(), dest.view(-1, ctx.k))
+            else:
+                dx = plain_dispatch_backward(grad, dest, ctx.k)
+        return dx, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """`plain_combine`: y [M, D], gate [T, k] fp32, dest [T k] -> [T, D].
+    Its backward, under the range `model.moe.permute`, gives y's gradient
+    (bf16(g[t] bf16(gate[t, j])) in row dest[t k + j], zeros elsewhere) and
+    the gate's. On the card the permutation kernels (`gather_sum` with the
+    gate, then `scatter` with it, whose gate gradient is summed in fp32); on
+    the CPU `plain_combine` and its autograd, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, y, gate, dest):
+        ctx.save_for_backward(y, gate, dest)
+        if permute.fused(y, gate, dest):
+            return permute.gather_sum(y, dest.view_as(gate), gate)
+        return plain_combine(y, gate, dest)
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, gate, dest = ctx.saved_tensors
+        with span(MOE_PERMUTE):
+            if permute.fused(grad, y, gate, dest):
+                dy, dgate = permute.scatter(grad.contiguous(), dest.view_as(gate), y.shape[0],
+                                            gate, y)
+            else:
+                with torch.enable_grad():
+                    y, gate = y.detach().requires_grad_(), gate.detach().requires_grad_()
+                    dy, dgate = torch.autograd.grad(plain_combine(y, gate, dest), (y, gate), grad)
+        return dy, dgate, None
 
 
 def grouped_mm(a: torch.Tensor, b: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
@@ -276,7 +342,8 @@ def _dropless(h, router, w1, w3, w2, config):
         sums = torch.stack([counts.float(), probs.sum(0)])
         if counting():
             count(EXPERT_LOAD, counts.max() * (config.n_experts / choice.numel()))
-    xs = _Dispatch.apply(x, dest, rows, k)
+    with span(MOE_PERMUTE):
+        xs = _Dispatch.apply(x, dest, rows, k)
 
     def products(xs, w1, w3, w2):
         with span(MOE_EXPERTS):
@@ -286,8 +353,9 @@ def _dropless(h, router, w1, w3, w2, config):
             return grouped_mm(gate * up, w2.to(dtype), offs)
 
     y = backward_span(MOE_EXPERTS_GRAD, products, xs, w1, w3, w2)
-    y = y.index_select(0, dest).view(-1, k, d) * gate.to(config.dtype)[..., None]
-    return y.sum(1).view(b, s, d), sums
+    with span(MOE_PERMUTE):
+        out = _Combine.apply(y, gate, dest)
+    return out.view(b, s, d), sums
 
 
 def dropless_mlp(h: torch.Tensor, router: torch.Tensor, experts: Dict[str, torch.Tensor],
